@@ -105,7 +105,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif flag == "-D":
             opt.discard = True
         elif flag == "-1":
-            _not_in_slice("-1 (trim)", "7")
+            opt.filter_mode = True
         elif flag == "-Q":
             opt.no_qual = True
         elif flag == "-J":

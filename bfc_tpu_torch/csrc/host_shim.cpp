@@ -6,6 +6,7 @@
 // same arguments as the matching *_launch function minus the stream, so
 // the tests can hold the CUDA logic against the plain PyTorch versions
 // on a machine without a card.
+#include "bloom.cuh"
 #include "ec1_search.cuh"
 #include "kcov_island.cuh"
 #include "kmer_stream.cuh"
@@ -74,6 +75,44 @@ void kd_host(const uint64_t* table, int k, int l_pre, int kb_bits,
     delete[] stack;
     delete[] ec0;
     delete[] ec1;
+}
+
+void ke_host(long long C, const int64_t* arr, const int64_t* n,
+             const int64_t* nh, const uint8_t* fh, int32_t* a_lo,
+             int32_t* nfh) {
+    for (long long i = 0; i < C; i++) ke_row(i, arr, n, nh, fh, a_lo, nfh);
+}
+
+// KF's two passes in order; dense must hold 2^bf_shift zeroed entries.
+void kf_host(long long C, const int64_t* ret, const int32_t* arr,
+             const int32_t* n, int bf_shift, int n_hashes, uint32_t* dense,
+             uint8_t* fp, uint8_t* keep) {
+    for (long long i = 0; i < C; i++)
+        kf_scatter_row(i, ret, arr, bf_shift, n_hashes, dense);
+    for (long long i = 0; i < C; i++)
+        kf_verdict_row(i, ret, arr, n, bf_shift, n_hashes, dense, fp, keep);
+}
+
+// words must hold 2^(bf_shift-5) zeroed entries.
+void kg_host(long long C, const int64_t* ret, const uint8_t* keep,
+             int bf_shift, int n_hashes, uint32_t* words) {
+    for (long long i = 0; i < C; i++)
+        kg_row(i, ret, keep, bf_shift, n_hashes, words);
+}
+
+void kh_host(const uint8_t* bases, const int32_t* lens, int B, int L, int k,
+             const uint32_t* words, int bf_shift, int n_hashes,
+             int64_t* out) {
+    for (int r = 0; r < B; r++)
+        out[r] = kh_read(bases + (size_t)r * L, lens[r], k, words, bf_shift,
+                         n_hashes);
+}
+
+void probe_bits_host(long long C, const int64_t* ret, int bf_shift,
+                     int n_hashes, int64_t* out) {
+    for (long long i = 0; i < C; i++)
+        bloom_probe_bits((uint64_t)ret[i], bf_shift, n_hashes,
+                         (uint64_t*)out + i * n_hashes);
 }
 
 }  // extern "C"

@@ -92,7 +92,19 @@ KD = Kernel("ec1_search", {
     "kd_launch": [_P, _I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
     "kd_sizes": [_P, _P, _P],
 })
-KERNELS = {k.name: k for k in (KA, KB, KC, KD)}
+KE = Kernel("pack_pull", {
+    "ke_launch": [_LL] + [_P] * 7,
+})
+KF = Kernel("bloom_adjudicate", {
+    "kf_launch": [_LL, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+})
+KG = Kernel("bloom_build", {
+    "kg_launch": [_LL, _P, _P, _I, _I, _P, _P],
+})
+KH = Kernel("max_streak", {
+    "kh_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+})
+KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH)}
 
 
 def reset_launches() -> None:
@@ -150,6 +162,17 @@ def build_all() -> float:
         if failed:
             raise RuntimeError("\n".join(failed))
         return time.time() - t0
+
+
+def device_free_bytes(dev) -> int:
+    """Device bytes a new allocation can take: the free memory that
+    cudaMemGetInfo reports plus what PyTorch's caching allocator holds
+    unused."""
+    import torch
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    return (free + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
 
 
 def check(t, name: str, dtype, shape, device) -> None:

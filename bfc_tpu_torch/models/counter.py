@@ -17,6 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..opts import Opts
 from ..ops import kmer as kops
 from ..ops import spectrum as spec
@@ -129,9 +130,7 @@ class AggBuilder:
 
     def _merge(self, a: sdn.Run, b: sdn.Run) -> sdn.Run:
         if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            free += (torch.cuda.memory_reserved(self.device)
-                     - torch.cuda.memory_allocated(self.device))
+            free = kernels.device_free_bytes(self.device)
             need = sdn.merge_bytes(a, b)
             if need > free:
                 raise RuntimeError(
@@ -148,37 +147,43 @@ class AggBuilder:
             acc = older if acc is None else self._merge(older, acc)
         return acc
 
+    def pull(self, run: sdn.Run) -> sph.HostAgg:
+        """The run on the host: packed by KE while arrivals stay below
+        2^47 (bfc_tpu's _run_to_host, counter.py:501), unpacked above.
+        Logs the transfer (pack included) and the host unpack apart."""
+        t0 = time.time()
+        if self.arrival_base < sdn.PACK_ARRIVAL_LIMIT:
+            host = pull_columns(sdn.pack_pull(run))
+            t1 = time.time()
+            ha = sdn.packed_run_to_host_agg(*host, self.k, self.l_pre)
+        else:
+            host = pull_columns(run)
+            t1 = time.time()
+            ha = sdn.run_to_host_agg(*host, self.k, self.l_pre)
+        log(f"pull {t1 - t0:.1f}s, host aggregate {time.time() - t1:.1f}s",
+            func="AggBuilder")
+        return ha
+
     def finish(self) -> sph.HostAgg:
         """Fold the tree, pull the aggregate and attach the Bloom sketch."""
         acc = self.fold()
         if acc is None:
             return sph.empty_host_agg()
         log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
+        ha = self.pull(acc)
         t0 = time.time()
-        host = [None if f is None else f.cpu().numpy() for f in acc]
-        t1 = time.time()
-        shard, keybody, arr, n, n_high, first_high, ret = host
-        shard = shard.astype(np.uint32)
-        keybody = keybody.view(np.uint64)
-        if ret is None:
-            ret = sdn.derive_ret_np(shard, keybody, self.k, self.l_pre)
-        else:
-            ret = ret.view(np.uint64)
-        ha = sph.HostAgg(
-            shard=shard, keybody=keybody, ret=ret,
-            n=np.minimum(n, 0xFFFFFFFF).astype(np.uint32),
-            n_high=np.minimum(n_high, 0xFFFFFFFF).astype(np.uint32),
-            first_arr=arr.view(np.uint64),
-            first_high=first_high.astype(np.uint32),
-        )
         sketch = sph.BloomMinSketch.create(self.opt.bf_shift, self.opt.n_hashes)
         if sketch is not None:
             sketch.scatter(ha.ret, ha.first_arr)
             if sketch.valid:
                 ha = ha._replace(bloom_min=sketch)
-        log(f"pull {t1 - t0:.1f}s, host aggregate + Bloom sketch "
-            f"{time.time() - t1:.1f}s", func="AggBuilder")
+            log(f"Bloom sketch {time.time() - t0:.1f}s", func="AggBuilder")
         return ha
+
+
+def pull_columns(cols):
+    """Device columns (None passes through) -> numpy arrays on the host."""
+    return [None if f is None else f.cpu().numpy() for f in cols]
 
 
 def padded_batches(fn: str, opt: Opts, batch_reads: int):

@@ -1,9 +1,11 @@
-"""End-to-end pipeline on the card: count -> correct -> formatted output.
+"""End-to-end pipeline on the card: count -> correct (or trim) ->
+formatted output.
 
 Counterpart of bfc_tpu/models/device_pipeline.py, mirroring main() of the
-reference CLI (bfc.c:126-150).  Reads stream through the corrector in
-batches and records are written in input order (the reference's
-kt_pipeline ordering guarantee), through the native formatter.
+reference CLI (bfc.c:126-150).  Reads stream through the corrector, or in
+trim mode (-1) the trimmer, in batches and records are written in input
+order (the reference's kt_pipeline ordering guarantee), through the
+native formatter.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..opts import Opts
 from ..utils.log import log
 from .corrector import BatchResult, Corrector
 from .counter import DeviceSpectrum, count_file_device
+from .trimmer import Trimmer, count_file_filter_device, popcount
 
 
 def _sync(dev: torch.device) -> None:
@@ -126,34 +129,54 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                no_ec: bool = False, batch_reads: int = 8192,
                count_batch_reads: int = 16384, sink=None,
                device=None, report: Optional[dict] = None) -> str:
-    """Count, then correct; returns the output text (reference stdout).
+    """Count, then correct (or, with opt.filter_mode, trim); returns the
+    output text (reference stdout).
 
     With `sink` (a binary file-like), records stream out as batches
     finish and the return value is "".  device: "cuda" (the default) or
     "cpu", which runs every kernel's plain version instead.  A `report`
     dict receives the phase wall times (each ending in a device
-    synchronize), the read and k-mer counts, the spectrum and the number
-    of reads corrected by the scalar fallback."""
+    synchronize) and counts: for correction the read and k-mer counts,
+    the spectrum and the number of reads corrected by the scalar
+    fallback; for trim the reads kept and dropped, the k-mers kept, the
+    set bits of the Bloom filter and the filter itself."""
     from ..io.writer import OutputWriter
 
     dev = resolve_device(device)
     out = OutputWriter(sink)
+    next_fn = correct_fn if correct_fn is not None else count_fn
     t0 = time.time()
-    ds = count_file_device(count_fn, opt, dev, batch_reads=count_batch_reads)
-    _sync(dev)
-    t1 = time.time()
-    corr = None
-    if not no_ec:
-        corr = correct_file_device(
-            correct_fn if correct_fn is not None else count_fn, opt, ds, out,
-            batch_reads=batch_reads)
+    if opt.filter_mode:
+        info = {} if report is not None else None
+        bloom = count_file_filter_device(count_fn, opt, dev,
+                                         batch_reads=count_batch_reads,
+                                         info=info)
         _sync(dev)
-    if report is not None:
-        report.update(
-            count_s=t1 - t0, correct_s=time.time() - t1,
-            n_reads=ds.n_reads, n_aggregated=ds.n_aggregated,
-            n_kept=ds.n_entries, spectrum=ds,
-            n_fallback=corr.n_fallback if corr is not None else 0)
+        t1 = time.time()
+        trimmer = Trimmer(opt, bloom)
+        trimmer.trim_file(next_fn, out, batch_reads=batch_reads)
+        _sync(dev)
+        if report is not None:
+            report.update(info, count_s=t1 - t0, trim_s=time.time() - t1,
+                          reads_trimmed=trimmer.n_reads,
+                          reads_kept=trimmer.n_kept,
+                          reads_dropped=trimmer.n_reads - trimmer.n_kept,
+                          n_set_bits=popcount(bloom.words), bloom=bloom)
+    else:
+        ds = count_file_device(count_fn, opt, dev, batch_reads=count_batch_reads)
+        _sync(dev)
+        t1 = time.time()
+        corr = None
+        if not no_ec:
+            corr = correct_file_device(next_fn, opt, ds, out,
+                                       batch_reads=batch_reads)
+            _sync(dev)
+        if report is not None:
+            report.update(
+                count_s=t1 - t0, correct_s=time.time() - t1,
+                n_reads=ds.n_reads, n_aggregated=ds.n_aggregated,
+                n_kept=ds.n_entries, spectrum=ds,
+                n_fallback=corr.n_fallback if corr is not None else 0)
     if sink is not None:
         out.flush()
         return ""

@@ -1,4 +1,5 @@
-"""The spectrum lookup table: a two-slot cuckoo table of u64 entries.
+"""The spectrum lookup table, the Bloom probe addressing and the
+first-occurrence Bloom verdict (kernel KF).
 
 Counterpart of the CuckooTable layout of bfc_tpu/ops/spectrum.py (:286)
 and its probes cuckoo_lookup (:687) and cuckoo_lookup32 (:721).  The
@@ -8,6 +9,10 @@ On the card the probe is the __device__ function cuckoo_probe of
 csrc/cuckoo.cuh, inlined into kernels KC and KD; this module holds its
 plain versions (vectorized, and per k-mer in Python integers for the
 plain search) and the helpers the host table build shares.
+
+bloom_probe_bits is the plain twin of csrc/bloom.cuh (spectrum.py:184),
+and adjudicate_sketch is kernel KF (spectrum.py:adjudicate_sketch, :843,
+with the keep rule of trimmer.py:filter_keep_rets, :81).
 """
 
 from __future__ import annotations
@@ -16,12 +21,15 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from .kmer import canonical_hash, shard_and_keybody, srl
 
 _CUCKOO_GOLD = 0x9E3779B97F4A7C15
 _ALT_C1 = 0x9E3779B9
 _ALT_C2 = 0x85EBCA6B
 _U64 = (1 << 64) - 1
+BLK_SHIFT = 9
+MAX_HASHES = 16  # csrc/bloom.cuh:BFC_MAX_HASHES
 
 
 class SpecTable(NamedTuple):
@@ -158,3 +166,93 @@ class IntProbe:
         self.n_probes += 1
         _, h0, h1 = kmer_hash(self.k, x)
         return self.get(h0, h1)
+
+
+# ---------------------------------------------------------------------------
+# Bloom probe addressing and the first-occurrence verdict (KF)
+# ---------------------------------------------------------------------------
+
+def bloom_probe_bits(ret, bf_shift: int, n_hashes: int):
+    """Global bit ids (int64 [..., n_hashes]) probed for each ret (int64
+    u64 bit patterns; bbf.c:27-37): block << 9 | offset, with the stride
+    bumped when h2 & 31 == 0 and offsets in byte 0 of the block skipped.
+    n_hashes + 8 steps always hold n_hashes valid offsets (at most 8 of
+    fewer than 32 distinct offsets lie below 8)."""
+    x = bf_shift - BLK_SHIFT
+    block = ret & ((1 << x) - 1)
+    z = srl(ret, x) & 511
+    h2 = srl(ret, bf_shift) & 511
+    h2 = torch.where((h2 & 31) == 0, (h2 + 1) & 511, h2)
+    zs = []
+    for _ in range(n_hashes + 8):
+        zs.append(z)
+        z = (z + h2) & 511
+    zs = torch.stack(zs, dim=-1)
+    ok = zs >= 8
+    rank = torch.where(ok, torch.cumsum(ok.to(torch.int64), dim=-1) - 1, -1)
+    out = torch.stack([torch.where(rank == j, zs, 0).sum(dim=-1)
+                       for j in range(n_hashes)], dim=-1)
+    return (block << BLK_SHIFT).unsqueeze(-1) | out
+
+
+def adjudicate_sketch_plain(ret, arr, n, bf_shift: int, n_hashes: int):
+    """Plain version of KF, as a sort (spectrum.py:
+    adjudicate_first_occurrence, :217): the probes sorted by (bit,
+    arrival), each compared with its bit group's first arrival.  It needs
+    no 2^bf_shift array.  ret int64 [C]; arr int32 [C], the low 32 bits of
+    the first arrivals; n int32 [C] occurrences (saturated).  Returns
+    (fp, keep), bool [C]."""
+    C = ret.shape[0]
+    H = n_hashes
+    bits = bloom_probe_bits(ret, bf_shift, n_hashes).reshape(-1)
+    a = (arr.to(torch.int64) & 0xFFFFFFFF).repeat_interleave(H)
+    order = torch.sort(a, stable=True).indices
+    order = order[torch.sort(bits[order], stable=True).indices]
+    sb, sa = bits[order], a[order]
+    first = torch.ones_like(sb, dtype=torch.bool)
+    first[1:] = sb[1:] != sb[:-1]
+    idx = torch.arange(sb.shape[0], device=sb.device)
+    start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    hit = torch.empty_like(first)
+    hit[order] = sa[start] < sa
+    fp = hit.view(C, H).all(dim=1)
+    keep = n.to(torch.int64) - 1 + fp.to(torch.int64) >= 1
+    return fp, keep
+
+
+def check_n_hashes(n_hashes: int) -> None:
+    if not 1 <= n_hashes <= MAX_HASHES:
+        raise ValueError(f"n_hashes {n_hashes} outside 1..{MAX_HASHES}")
+
+
+def adjudicate_sketch(ret, arr, n, bf_shift: int, n_hashes: int):
+    """Which distinct k-mers enter the trim mode's bf_high (kernel KF).
+
+    fp: the first occurrence found all its Bloom bits set by an earlier
+    arrival; keep: n - 1 + fp >= 1.  Inputs as adjudicate_sketch_plain;
+    arrivals must be below 2^32 - 1 (the caller checks).  On the card a
+    u32 scratch of 2^bf_shift entries (4 * 2^bf_shift bytes) holds the
+    inverted earliest arrival of every bit; a card without that much free
+    memory raises."""
+    C = ret.shape[0]
+    dev = ret.device
+    kernels.check(ret, "ret", torch.int64, (C,), dev)
+    kernels.check(arr, "arr", torch.int32, (C,), dev)
+    kernels.check(n, "n", torch.int32, (C,), dev)
+    check_n_hashes(n_hashes)
+    if dev.type == "cpu":
+        return adjudicate_sketch_plain(ret, arr, n, bf_shift, n_hashes)
+    need = 4 << bf_shift
+    free = kernels.device_free_bytes(dev)
+    if need > free:
+        raise RuntimeError(
+            f"the Bloom adjudicate at -b{bf_shift} needs {need} bytes of "
+            f"device scratch, {free} free: the sort adjudicate on the card "
+            "is ROADMAP Queue 2 (K12b)")
+    dense = torch.empty((1 << bf_shift,), dtype=torch.int32, device=dev)
+    fp = torch.empty((C,), dtype=torch.bool, device=dev)
+    keep = torch.empty((C,), dtype=torch.bool, device=dev)
+    kernels.KF.launch("kf_launch", C, ret.data_ptr(), arr.data_ptr(),
+                      n.data_ptr(), bf_shift, n_hashes, dense.data_ptr(),
+                      fp.data_ptr(), keep.data_ptr())
+    return fp, keep

@@ -16,6 +16,10 @@ keeps stream order inside a key group, within a batch and for an
 [older run, newer run] concatenation, so each group's first row is its
 first occurrence - the precondition of the combine.  Kernel KB marks the
 group heads, folds each group into its head and compacts the heads.
+
+Kernel KE packs a run for its pull to the host (spectrum_dense.py:
+pack_pull, :233): arrival, counts and first_high fold into two 32-bit
+planes, and packed_run_to_host_agg (:258) unpacks them into a HostAgg.
 """
 
 from __future__ import annotations
@@ -140,6 +144,99 @@ def concat_sorted(a: Run, b: Run) -> Run:
 def merge_runs(a: Run, b: Run) -> Run:
     """Merge two runs; a must cover the earlier stream span."""
     return run_combine(concat_sorted(a, b))
+
+
+class Packed(NamedTuple):
+    """A run as it crosses to the host (KE): identity and ret pass through,
+    the payload folds into two 32-bit planes (u32 bit patterns in int32)."""
+
+    shard: torch.Tensor     # int64 [C]
+    keybody: torch.Tensor   # int64 [C]
+    a_lo: torch.Tensor      # int32 [C] low 32 bits of the arrival
+    nfh: torch.Tensor       # int32 [C] see pack_pull
+    ret: Optional[torch.Tensor]  # int64 [C], when carried
+
+
+PACK_ARRIVAL_LIMIT = 1 << 47  # arr_hi rides in the top 15 bits of nfh
+
+
+def as_i32(x):
+    """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def pack_pull_plain(run: Run) -> Packed:
+    """Plain version of KE."""
+    nfh = (run.n.clamp(max=511) | (run.n_high.clamp(max=127) << 9)
+           | (run.first_high.to(torch.int64) << 16) | ((run.arr >> 32) << 17))
+    return Packed(run.shard, run.keybody, as_i32(run.arr & 0xFFFFFFFF),
+                  as_i32(nfh), run.ret)
+
+
+def pack_pull(run: Run) -> Packed:
+    """Pack a run for the pull to the host (kernel KE): a_lo is the low 32
+    bits of the first arrival, nfh = min(n, 511) | min(n_high, 127) << 9 |
+    first_high << 16 | arrival >> 32 << 17.  Arrivals must be below 2^47
+    (the caller checks).  The saturation points lie above every payload
+    cap, so the finalized spectrum does not change."""
+    C = len(run)
+    dev = run.shard.device
+    for name in ("arr", "n", "n_high"):
+        kernels.check(getattr(run, name), name, torch.int64, (C,), dev)
+    kernels.check(run.first_high, "first_high", torch.uint8, (C,), dev)
+    if dev.type == "cpu":
+        return pack_pull_plain(run)
+    a_lo = torch.empty((C,), dtype=torch.int32, device=dev)
+    nfh = torch.empty((C,), dtype=torch.int32, device=dev)
+    kernels.KE.launch("ke_launch", C, run.arr.data_ptr(), run.n.data_ptr(),
+                      run.n_high.data_ptr(), run.first_high.data_ptr(),
+                      a_lo.data_ptr(), nfh.data_ptr())
+    return Packed(run.shard, run.keybody, a_lo, nfh, run.ret)
+
+
+def _host_ret(shard, keybody, ret, k: int, l_pre: int):
+    if ret is None:
+        return derive_ret_np(shard, keybody, k, l_pre)
+    return ret.view(np.uint64)
+
+
+def packed_run_to_host_agg(shard: np.ndarray, keybody: np.ndarray,
+                           a_lo: np.ndarray, nfh: np.ndarray, ret, k: int,
+                           l_pre: int):
+    """Host twin of KE: pulled Packed columns -> HostAgg, with n and n_high
+    saturated at 511 and 127 (spectrum_dense.py:packed_run_to_host_agg,
+    :258); ret is derived from the identity where it was not carried."""
+    from .spectrum_host import HostAgg
+
+    shard = shard.astype(np.uint32)
+    keybody = keybody.view(np.uint64)
+    nfh = nfh.view(np.uint32)
+    arr_hi = (nfh >> np.uint32(17)).astype(np.uint64) << np.uint64(32)
+    return HostAgg(
+        shard=shard, keybody=keybody,
+        ret=_host_ret(shard, keybody, ret, k, l_pre),
+        n=nfh & np.uint32(511),
+        n_high=(nfh >> np.uint32(9)) & np.uint32(127),
+        first_arr=arr_hi | a_lo.view(np.uint32),
+        first_high=(nfh >> np.uint32(16)) & np.uint32(1),
+    )
+
+
+def run_to_host_agg(shard, keybody, arr, n, n_high, first_high, ret, k: int,
+                    l_pre: int):
+    """Pulled unpacked Run columns -> HostAgg (counts clamped to u32)."""
+    from .spectrum_host import HostAgg
+
+    shard = shard.astype(np.uint32)
+    keybody = keybody.view(np.uint64)
+    return HostAgg(
+        shard=shard, keybody=keybody,
+        ret=_host_ret(shard, keybody, ret, k, l_pre),
+        n=np.minimum(n, 0xFFFFFFFF).astype(np.uint32),
+        n_high=np.minimum(n_high, 0xFFFFFFFF).astype(np.uint32),
+        first_arr=arr.view(np.uint64),
+        first_high=first_high.astype(np.uint32),
+    )
 
 
 def derive_ret_np(shard: np.ndarray, keybody: np.ndarray, k: int,

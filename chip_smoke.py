@@ -1,6 +1,6 @@
-"""Smoke run of bfc_tpu_torch on one CUDA card: builds the four kernels,
-drives the count + correct main path at E. coli scale, and holds every
-kernel against its plain PyTorch version.
+"""Smoke run of bfc_tpu_torch on one CUDA card: builds the eight kernels,
+drives the count + correct main path and the trim path (-1) at E. coli
+scale, and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -19,16 +19,32 @@ Phases (any failure raises; nothing is caught):
 3. The counting against plain versions: the main path's counting tree is
    built again from the same reads with KB held against its plain
    version on every merge (up to the final fold of ~50M rows), and must
-   fold to the main path's number of distinct k-mers; then the card's
-   count of the first 80,000 reads (~9 batches) must equal a plain count
-   of them on the CPU, aggregate field for field and finalized spectrum.
-4. Each kernel against its plain version on the same CUDA tensors at the
-   main path's shapes (KA and KB: a 16,384-read counting batch of 128
+   fold to the main path's number of distinct k-mers; KE is held against
+   its plain version on that fold, and the fold's pull is timed unpacked
+   and packed (KE) in turns.  Then the card's count of the first 80,000
+   reads (~9 batches) must equal a plain count of them on the CPU,
+   aggregate field for field and finalized spectrum.
+4. Each of KA-KD against its plain version on the same CUDA tensors at
+   the main path's shapes (KA and KB: a 16,384-read counting batch of 128
    slots; KC and KD: an 8,192-read correction batch of 100 bp, KD's plain
    version on its first 512 reads) with the k = 23 spectrum of phase 2,
-   then again at k = 33 on a spectrum of the first 200,000 reads.  The
-   tolerance is exact equality: every output is an integer.  Kernel times
-   are CUDA-event means over repeated launches after a warm-up.
+   then again at k = 33 on a spectrum of the first 200,000 reads.
+5. The trim path, as `python -m bfc_tpu_torch -1 -k51 reads.fq` runs it
+   (the default -b33, where the verdict is KF's): run_device over the same
+   3,000,000 reads, launch counts zeroed just before and read just after;
+   KA, KB, KE, KF, KG and KH must have launched.  1,000 seeded reads
+   trimmed by the scalar model (refmodel.trim_read) over a copy of the
+   card's Bloom words must give the output's records byte for byte,
+   matched by name, and the dropped ones must be absent.
+6. The trim kernels against their plain versions and the host: KF's
+   verdicts on the whole trim aggregate against the exact 1-bit replay
+   (spectrum_host.adjudicate_replay_np) and the sort formulation; KG on
+   the aggregate's kept rows; KH on an 8,192-read trim batch.  Then the
+   card's -1 -k51 count of the first 80,000 reads must give the plain
+   CPU run's aggregate, keep set and Bloom bits.
+
+The tolerance is exact equality throughout: every output is an integer.
+Kernel times are CUDA-event means over repeated launches after a warm-up.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
@@ -55,10 +71,13 @@ from bfc_tpu_torch.io.writer import OutputWriter
 from bfc_tpu_torch.models import counter as C
 from bfc_tpu_torch.models import device_pipeline as DP
 from bfc_tpu_torch.models import refmodel as M
+from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as ann
 from bfc_tpu_torch.ops import kmer as kops
 from bfc_tpu_torch.ops import search as srch
+from bfc_tpu_torch.ops import spectrum as spec
 from bfc_tpu_torch.ops import spectrum_dense as sdn
+from bfc_tpu_torch.ops import spectrum_host as sph
 from bfc_tpu_torch.ops.spectrum import IntProbe
 from bfc_tpu_torch.opts import Opts
 
@@ -75,12 +94,20 @@ SECTOR = 32  # bytes of one random device-memory access
 OPS_KMER = 2 * 60
 OPS_PROBE = 2 * 80
 OPS_KB_ROW = 2 * 8
+# Bloom addressing of one row (csrc/bloom.cuh): ~20 u64 ops for the block,
+# offsets and stride plus ~4 a probed bit; one row's bits share one
+# 64-byte block, counted as one random access of two sectors.
+OPS_BLOOM = 2 * (20 + 4 * 4)
+BLOCK = 2 * SECTOR
+OPS_KE_ROW = 2 * 8
 
 COUNT_B, COUNT_L = 16384, 128   # run_device's counting batch (padded to 32)
 CORR_B = 8192                   # run_device's correction batch
 KD_PLAIN_READS = 512
 SAMPLE_READS = 1000
 HEAD_READS = 80_000             # ~9 counting batches for the plain count
+TRIM_K = 51                     # README's trim command: -1 -k51 (-b33)
+TRIM_B, TRIM_L = 8192, 128      # Trimmer.trim_file's batch (L padded to 32)
 
 
 def fail(msg: str):
@@ -328,12 +355,13 @@ class CheckedAgg(C.AggBuilder):
 def check_merges(fq: Path, opt, dev, n_aggregated: int) -> CheckedAgg:
     """The main path's counting tree again over the same reads, with every
     merge (n > 1, key groups spanning runs, up to the final fold) held
-    against the plain combine; the fold must hold the main path's number
-    of distinct k-mers."""
+    against the plain combine; the fold (kept as .folded) must hold the
+    main path's number of distinct k-mers."""
     agg = CheckedAgg(opt, dev)
     for bases, qok, lens, _ in C.padded_batches(str(fq), opt, COUNT_B):
         agg.add(bases, qok, lens)
-    rows = len(agg.fold())
+    agg.folded = agg.fold()
+    rows = len(agg.folded)
     if agg.mismatches:
         fail(f"KB disagrees with its plain version on {agg.mismatches} merged "
              "rows")
@@ -365,6 +393,46 @@ def check_head_count(fq: Path, opt, dev):
     if not same:
         fail("head count: the finalized spectrum differs from the plain count")
     return len(got.shard), ds_g.n_entries
+
+
+def drive(opt, fq: Path, out: Path):
+    """One run of run_device over fq into out, with every launch count
+    zeroed just before and read just after.  Returns (report, launches,
+    device memory peak in bytes)."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    with open(out, "wb") as sink:
+        DP.run_device(opt, str(fq), sink=sink, device="cuda", report=report)
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    return report, launches, torch.cuda.max_memory_allocated()
+
+
+def need_launched(launches, names, path: str) -> None:
+    for name in names:
+        if launches[name] == 0:
+            fail(f"kernel {name} never launched on {path}")
+
+
+def check_pack_pull(run):
+    """KE against its plain version on the main path's final fold; the
+    fold's pull to the host (host clock, synchronized) unpacked, packed,
+    packed, unpacked."""
+    rows = len(run)
+    r = dict(zip(("max_abs_err", "mismatches"),
+                 compare(sdn.pack_pull(run), sdn.pack_pull_plain(run))))
+    r["ms"] = cuda_ms(lambda: sdn.pack_pull(run), 10)
+    r["plain_ms"] = cuda_ms(lambda: sdn.pack_pull_plain(run), 3)
+    r["bound"] = bound(rows * (3 * 8 + 1 + 2 * 4), rows * OPS_KE_ROW)
+    walls = {"unpacked": [], "packed": []}
+    for kind in ("unpacked", "packed", "packed", "unpacked"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        C.pull_columns(run if kind == "unpacked" else sdn.pack_pull(run))
+        walls[kind].append(time.time() - t0)
+    r["pull_s"] = walls
+    r["rows"] = rows
+    return r
 
 
 def small_spectrum(fq: Path, k: int, dev):
@@ -410,6 +478,127 @@ def check_output(out_fq: Path, n_reads: int, bases, quals, opt, ds, seed):
     return n_corrected
 
 
+def check_trim_output(out_fq: Path, n_reads: int, bases, quals, opt, bloom,
+                      seed):
+    """SAMPLE_READS reads trimmed by refmodel.trim_read over a host copy
+    of the card's Bloom words: a kept read's record must be in the output
+    byte for byte, a dropped read must be absent.  Returns (records out,
+    sampled reads kept)."""
+    lines = out_fq.read_bytes().split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()
+    if len(lines) % 4:
+        fail(f"trim output has {len(lines)} lines, not whole FASTQ records")
+    where = {lines[j][1:]: j for j in range(0, len(lines), 4)}
+    probe = TT.WordsProbe(bloom)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    idx = np.sort(np.random.default_rng(seed + 2).choice(
+        n_reads, SAMPLE_READS, replace=False))
+    differ = kept = 0
+    for i in idx:
+        seq = acgt[bases[i]].tobytes().decode()
+        qual = quals[i].tobytes().decode()
+        keep, s2, q2 = M.trim_read(opt, probe, seq, qual)
+        j = where.get(b"r%08d" % i)
+        if keep:
+            kept += 1
+            want = [b"@r%08d" % i, s2.encode(), b"+", q2.encode()]
+            differ += j is None or lines[j:j + 4] != want
+        else:
+            differ += j is not None
+    if differ:
+        fail(f"{differ} of {SAMPLE_READS} sampled reads trim otherwise than "
+             "refmodel.trim_read")
+    return len(lines) // 4, kept
+
+
+def check_trim_kernels(agg, keep_path, bloom, opt, bases, dev):
+    """KF, KG and KH against their plain versions on the card at the trim
+    path's shapes, and KF's verdicts against the host's exact replay.
+    Returns {name: result}."""
+    b, H = opt.bf_shift, opt.n_hashes
+    rows = len(agg.ret)
+    ret = torch.from_numpy(agg.ret.view(np.int64)).to(dev)
+    arr = torch.from_numpy(
+        agg.first_arr.astype(np.uint32).view(np.int32)).to(dev)
+    n = torch.from_numpy(np.minimum(agg.n, 0x7FFFFFFF).astype(np.int32)).to(dev)
+    res = {}
+
+    fp, keep = spec.adjudicate_sketch(ret, arr, n, b, H)
+    if not torch.equal(keep, keep_path):
+        fail("KF's keep flags differ from the trim path's")
+    replay = sph.adjudicate_replay_np(agg.ret, agg.first_arr,
+                                      np.ones(rows, bool), b, H)
+    if replay is None:
+        fail("the native replay library did not load")
+    n_replay = int((fp.cpu().numpy() != replay).sum())
+    if n_replay:
+        fail(f"KF's verdicts differ from the host replay on {n_replay} rows")
+    r = {"replay_mismatches": n_replay, "fp": int(fp.sum()),
+         "kept": int(keep.sum()), "rows": rows}
+    r["ms"] = cuda_ms(lambda: spec.adjudicate_sketch(ret, arr, n, b, H), 3)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = spec.adjudicate_sketch_plain(ret, arr, n, b, H)
+    torch.cuda.synchronize()
+    r["plain_ms"] = (time.time() - t0) * 1e3
+    r.update(zip(("max_abs_err", "mismatches"), compare((fp, keep), want)))
+    del want
+    torch.cuda.empty_cache()
+    r["bound"] = bound((4 << b) + rows * (8 + 4 + 4 + 2) + 2 * rows * BLOCK,
+                       2 * rows * OPS_BLOOM)
+    res["bloom_adjudicate"] = r
+
+    words = TT.bloom_build(ret, keep, b, H)
+    kept = r["kept"]
+    r = dict(zip(("max_abs_err", "mismatches"), compare(
+        (words, words), (bloom.words, TT.bloom_build_plain(ret, keep, b, H)))))
+    r["ms"] = cuda_ms(lambda: TT.bloom_build(ret, keep, b, H), 5)
+    r["plain_ms"] = cuda_ms(lambda: TT.bloom_build_plain(ret, keep, b, H), 1)
+    r["bound"] = bound((1 << (b - 3)) + rows * 9 + kept * BLOCK,
+                       kept * OPS_BLOOM)
+    res["bloom_build"] = r
+    del ret, arr, n, fp, keep, words
+    torch.cuda.empty_cache()
+
+    tb = np.full((TRIM_B, TRIM_L), 4, np.uint8)
+    tb[:, :bases.shape[1]] = bases[:TRIM_B]
+    tb = torch.from_numpy(tb).to(dev)
+    lens = torch.full((TRIM_B,), bases.shape[1], dtype=torch.int32, device=dev)
+    args = (bloom.words, tb, lens, opt.k, b, H)
+    r = dict(zip(("max_abs_err", "mismatches"), compare(
+        (TT.max_streak_batch(*args),), (TT.max_streak_plain(*args),))))
+    probes = TRIM_B * max(bases.shape[1] - opt.k + 1, 0)
+    r["ms"] = cuda_ms(lambda: TT.max_streak_batch(*args), 20)
+    r["plain_ms"] = cuda_ms(lambda: TT.max_streak_plain(*args), 2)
+    r["bound"] = bound(TRIM_B * (TRIM_L + 4 + 8) + probes * BLOCK,
+                       probes * (OPS_KMER + OPS_BLOOM))
+    res["max_streak"] = r
+    return res
+
+
+def check_trim_head(fq: Path, opt, dev):
+    """The card's -1 count of the first HEAD_READS reads against a plain
+    run on the CPU: aggregate, keep set and Bloom bits.  Returns
+    (distinct k-mers, kept, set bits)."""
+    got, want = {}, {}
+    bg = TT.count_file_filter_device(str(fq), opt, dev, COUNT_B, info=got)
+    bw = TT.count_file_filter_device(str(fq), opt, "cpu", COUNT_B, info=want)
+    if got["verdict"] != "KF" or want["verdict"] != "KF":
+        fail(f"trim head count: verdicts {got['verdict']}, {want['verdict']}")
+    for f in ("shard", "keybody", "ret", "n", "n_high", "first_arr",
+              "first_high"):
+        if not np.array_equal(getattr(got["aggregate"], f),
+                              getattr(want["aggregate"], f)):
+            fail(f"trim head count: aggregate field {f} differs")
+    if not torch.equal(got["keep"].cpu(), want["keep"]):
+        fail("trim head count: the keep set differs from the plain run")
+    if not torch.equal(bg.words.cpu(), bw.words):
+        fail("trim head count: the Bloom bits differ from the plain run")
+    return got["n_aggregated"], got["n_kept"], TT.popcount(bw.words)
+
+
 # --------------------------------------------------------------------------
 
 SOURCES = {
@@ -421,7 +610,19 @@ SOURCES = {
                     "bfc_tpu/ops/annotate.py:67"),
     "ec1_search": ("KD", "bfc_tpu_torch/csrc/ec1_search.cu",
                    "bfc_tpu/ops/search.py:436"),
+    "pack_pull": ("KE", "bfc_tpu_torch/csrc/pack_pull.cu",
+                  "bfc_tpu/ops/spectrum_dense.py:233"),
+    "bloom_adjudicate": ("KF", "bfc_tpu_torch/csrc/bloom_adjudicate.cu",
+                         "bfc_tpu/ops/spectrum.py:843"),
+    "bloom_build": ("KG", "bfc_tpu_torch/csrc/bloom_build.cu",
+                    "bfc_tpu/models/trimmer.py:49"),
+    "max_streak": ("KH", "bfc_tpu_torch/csrc/max_streak.cu",
+                   "bfc_tpu/models/trimmer.py:136"),
 }
+MAIN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "kcov_island",
+                "ec1_search")
+TRIM_KERNELS = ("kmer_stream", "run_combine", "pack_pull",
+                "bloom_adjudicate", "bloom_build", "max_streak")
 
 
 def main() -> int:
@@ -459,14 +660,7 @@ def main() -> int:
         opt = Opts()
         opt.apply_genome_size(cli.parse_size("5m"))
         out_fq = tmp / "corrected.fq"
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        report = {}
-        with open(out_fq, "wb") as sink:
-            DP.run_device(opt, str(fq), sink=sink, device="cuda",
-                          report=report)
-        launches = {k.name: k.launches for k in kernels.KERNELS.values()}
-        peak = torch.cuda.max_memory_allocated()
+        report, launches, peak = drive(opt, fq, out_fq)
         cs, es = report["count_s"], report["correct_s"]
         print(f"main path (k={opt.k}, -b{opt.bf_shift}): counting {cs:.2f} s "
               f"({n_reads / cs:.0f} reads/s), correction {es:.2f} s "
@@ -479,15 +673,14 @@ def main() -> int:
               flush=True)
         if report["n_reads"] != n_reads:
             fail(f"counted {report['n_reads']} reads of {n_reads}")
-        for name, n in launches.items():
-            if n == 0:
-                fail(f"kernel {name} never launched on the main path")
+        need_launched(launches, MAIN_KERNELS, "the main path")
         ds = report["spectrum"]
         n_corr = check_output(out_fq, n_reads, bases, quals, opt, ds,
                               args.seed)
         print(f"output: {n_reads} records; {SAMPLE_READS} sampled records "
               f"byte-identical to refmodel.ec1 ({n_corr} of them corrected)",
               flush=True)
+        out_fq.unlink()
 
         # ---- the counting against plain versions
         t0 = time.time()
@@ -496,6 +689,14 @@ def main() -> int:
               f"merges of the counting tree (largest {merged.max_rows} rows); "
               f"the fold holds {report['n_aggregated']} k-mers as the main "
               f"path did; {time.time() - t0:.1f} s", flush=True)
+        res = {"pack_pull": check_pack_pull(merged.folded),
+               "run_combine_merges": (merged.max_abs_err, merged.merges,
+                                      merged.max_rows)}
+        w = res["pack_pull"]["pull_s"]
+        print(f"pull of the {res['pack_pull']['rows']}-row fold: unpacked "
+              f"{w['unpacked']} s, packed by KE {w['packed']} s", flush=True)
+        del merged
+        torch.cuda.empty_cache()
         t0 = time.time()
         head = tmp / "reads_80k.fq"
         write_fastq(head, bases[:HEAD_READS], quals[:HEAD_READS])
@@ -505,37 +706,96 @@ def main() -> int:
               f"aggregated, {n_kept} kept, same histograms); "
               f"{time.time() - t0:.1f} s", flush=True)
 
-        # ---- each kernel against its plain version
-        res = check_kernels(opt, ds, bases, quals, dev, timed=True)
+        # ---- KA-KD against their plain versions
+        res.update(check_kernels(opt, ds, bases, quals, dev, timed=True))
         small = tmp / "reads_head.fq"
         write_fastq(small, bases[:200_000], quals[:200_000])
         opt33, ds33 = small_spectrum(small, 33, dev)
         res33 = check_kernels(opt33, ds33, bases, quals, dev, timed=False)
+        del ds, ds33, report
+        torch.cuda.empty_cache()
+
+        # ---- the trim path, as `python -m bfc_tpu_torch -1 -k51 reads.fq`
+        topt = Opts()
+        topt.k = TRIM_K
+        topt.filter_mode = True
+        trim_fq = tmp / "trimmed.fq"
+        trep, tlaunches, tpeak = drive(topt, fq, trim_fq)
+        cs, ts = trep["count_s"], trep["trim_s"]
+        print(f"trim path (-1 -k{topt.k}, -b{topt.bf_shift}, verdict "
+              f"{trep['verdict']}): counting {cs:.2f} s, trim {ts:.2f} s, end "
+              f"to end {n_reads / (cs + ts):.0f} reads/s; reads kept "
+              f"{trep['reads_kept']}, dropped {trep['reads_dropped']}; "
+              f"{trep['n_aggregated']} distinct k-mers aggregated, "
+              f"{trep['n_kept']} kept; {trep['n_set_bits']} Bloom bits set; "
+              f"device memory peak {tpeak / 2**30:.2f} GiB; launches "
+              f"{tlaunches}", flush=True)
+        if trep["n_reads"] != n_reads or trep["reads_trimmed"] != n_reads:
+            fail(f"trim path: counted {trep['n_reads']} and trimmed "
+                 f"{trep['reads_trimmed']} reads of {n_reads}")
+        if trep["verdict"] != "KF":
+            fail(f"trim path took the {trep['verdict']} verdict, not KF")
+        need_launched(tlaunches, TRIM_KERNELS, "the trim path")
+        bloom = trep["bloom"]
+        n_out, n_sampled_kept = check_trim_output(
+            trim_fq, n_reads, bases, quals, topt, bloom, args.seed)
+        if n_out != trep["reads_kept"]:
+            fail(f"trim output holds {n_out} records, {trep['reads_kept']} "
+                 "reads were kept")
+        print(f"trim output: {n_out} records; {SAMPLE_READS} sampled reads "
+              f"trimmed as refmodel.trim_read trims them ({n_sampled_kept} "
+              "kept, the rest absent)", flush=True)
+        trim_fq.unlink()
+
+        # ---- the trim kernels against their plain versions and the host
+        t0 = time.time()
+        res.update(check_trim_kernels(trep["aggregate"], trep["keep"], bloom,
+                                      topt, bases, dev))
+        r = res["bloom_adjudicate"]
+        print(f"KF verdicts: equal to the host replay on all {r['rows']} "
+              f"rows ({r['fp']} first occurrences found their bits set, "
+              f"{r['kept']} k-mers kept); {time.time() - t0:.1f} s",
+              flush=True)
+        del trep, bloom
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        n_agg, n_kept, n_bits = check_trim_head(head, topt, dev)
+        print(f"trim head count: the card's -1 count of the first "
+              f"{HEAD_READS} reads equals the plain run on the CPU ({n_agg} "
+              f"k-mers aggregated, {n_kept} kept, {n_bits} Bloom bits set); "
+              f"{time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
-        r, r33 = res[name], res33[name]
-        print(f"{tag} {name}: mismatches k=23 {r['mismatches']}, "
-              f"k=33 {r33['mismatches']}; {r['ms']:.3f} ms, plain "
+        r = res[name]
+        errs = [r] + ([res33[name]] if name in res33 else [])
+        mism = sum(x["mismatches"] for x in errs)
+        print(f"{tag} {name}: mismatches {mism}; {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})", flush=True)
-        if r["mismatches"] != 0 or r33["mismatches"] != 0:
+              f"({r['bound'][1]}); launches main {launches[name]}, trim "
+              f"{tlaunches[name]}", flush=True)
+        if mism != 0:
             fail(f"kernel {name} disagrees with its plain version")
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": max(r["max_abs_err"], r33["max_abs_err"]),
-               "mismatches": r["mismatches"] + r33["mismatches"],
+               "replaces": replaces,
+               "launches": launches[name] + tlaunches[name],
+               "launches_by_path": {"main": launches[name],
+                                    "trim": tlaunches[name]},
+               "max_abs_err": max(x["max_abs_err"] for x in errs),
+               "mismatches": mism,
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                "library_ms": None}
-        if "plain_reads" in r:
-            row["plain_reads"] = r["plain_reads"]
+        for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches"):
+            if extra in r:
+                row[extra] = r[extra]
         if name == "run_combine":
-            row["max_abs_err"] = max(row["max_abs_err"], merged.max_abs_err)
-            row["merges_checked"] = merged.merges
-            row["max_merge_rows"] = merged.max_rows
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     res["run_combine_merges"][0])
+            row["merges_checked"], row["max_merge_rows"] = \
+                res["run_combine_merges"][1:]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's CLI surface: host formatting flags and FASTA input against
 bfc_tpu's scalar spec (models/pipeline.run), byte for byte; the card-or-
---cpu rule of the entry points; and the modes outside slice 1.
+--cpu rule of the entry points; trim mode (-1) with -Q, -D and a second
+file; and the modes not ported yet.
 
 The input is a tests/datagen.py dataset with 1% N bases, so -D drops
 reads (a 12 kb genome, 1,500 reads of 100 bp, 1% errors), as FASTQ and as
@@ -70,8 +71,27 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch, noisy):
     assert TDP.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flag", [["-1"], ["-R"], ["-d", "x"], ["-r", "x"],
-                                  ["-V4"], ["--mesh", "4"]])
+@pytest.mark.parametrize("flags,files", [
+    (["-Q"], ["fq"]), (["-D"], ["fq"]), ([], ["fq", "fa"])],
+    ids=["fasta-out", "discard", "two-files"])
+def test_trim_flags_match_scalar_spec(noisy, flags, files):
+    """-1 at k = 21, -b24: -Q writes FASTA, -D changes nothing in trim mode,
+    and the two-file form counts the first file and trims the second."""
+    mine = _port_cli("-1", "-k21", "-b24", *flags, *(noisy[f] for f in files))
+    o = JOpts()
+    o.k = 21
+    o.bf_shift = 24
+    o.filter_mode = True
+    o.no_qual = "-Q" in flags
+    o.discard = "-D" in flags
+    want = JP.run(o, *(noisy[f] for f in files)).encode()
+    assert mine == want
+    assert 0 < mine.count(b"\n")
+    assert (mine[:1] == b">") == (o.no_qual or files[-1] == "fa")
+
+
+@pytest.mark.parametrize("flag", [["-1", "-d", "x"], ["-R"], ["-d", "x"],
+                                  ["-r", "x"], ["-V4"], ["--mesh", "4"]])
 def test_modes_outside_the_slice_name_their_roadmap_item(flag, noisy):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main([*flag, "--cpu", noisy["fq"]])

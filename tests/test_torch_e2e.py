@@ -1,9 +1,12 @@
-"""The whole slice: `python -m bfc_tpu_torch --cpu` against bfc_tpu.
+"""The whole port: `python -m bfc_tpu_torch --cpu` against bfc_tpu.
 
 stdout must be byte-identical to bfc_tpu's device pipeline (run_device on
 JAX-CPU) at k = 21, -b24, the configuration of
 tests/test_device_vs_reference.py, and to bfc_tpu's scalar spec
 (models/pipeline.run) at k = 21, at the default k = 33 and at k = 63.
+Trim mode (-1) is held against both at k = 21 and 51, with the host Bloom
+sketch and without it (BFC_TPU_INC_ADJ=0, the device adjudicate in both
+packages), and against the spec at k = 63.
 The input is a tests/datagen.py dataset: a 12 kb genome, 1,500 reads of
 100 bp, 1% errors.  Tolerance: byte equality."""
 
@@ -63,3 +66,23 @@ def test_cli_matches_scalar_spec(fastq, k):
     mine = _port_cli("-b24", *(["-k63"] if k == 63 else []), fastq)
     assert mine.count(b"\n") == 4 * 1500
     assert mine == JP.run(_jopts(k), fastq).encode()
+
+
+@pytest.mark.parametrize("inc_adj", ["1", "0"], ids=["host-sketch", "kf"])
+@pytest.mark.parametrize("k", [21, 51])
+def test_trim_matches_run_device(fastq, k, inc_adj, monkeypatch):
+    monkeypatch.setenv("BFC_TPU_INC_ADJ", inc_adj)
+    mine = _port_cli("-1", f"-k{k}", "-b24", fastq)
+    o = _jopts(k)
+    o.filter_mode = True
+    assert 0 < mine.count(b"\n") < 4 * 1500  # some reads are dropped
+    assert mine == JDP.run_device(o, fastq).encode()
+    assert mine == JP.run(o, fastq).encode()
+
+
+def test_trim_k63_matches_scalar_spec(fastq):
+    mine = _port_cli("-1", "-k63", "-b24", fastq)
+    o = _jopts(63)
+    o.filter_mode = True
+    assert mine.count(b"\n") > 0
+    assert mine == JP.run(o, fastq).encode()

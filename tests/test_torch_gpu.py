@@ -1,4 +1,5 @@
-"""The four CUDA kernels against their plain PyTorch versions on a card.
+"""The eight CUDA kernels against their plain PyTorch versions on a card,
+and the trim path on the card against the same path on the CPU.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -15,9 +16,12 @@ import pytest
 import torch
 
 from bfc_tpu_torch.models import counter as TC
+from bfc_tpu_torch.models import device_pipeline as TDP
+from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as ann
 from bfc_tpu_torch.ops import kmer as kops
 from bfc_tpu_torch.ops import search as srch
+from bfc_tpu_torch.ops import spectrum as spec
 from bfc_tpu_torch.ops import spectrum_dense as sdn
 from bfc_tpu_torch.opts import Opts
 
@@ -42,15 +46,19 @@ def _reads(n=6000, glen=20000, rlen=100, seed=3):
     return b, q
 
 
+def _write_fq(path, b, q):
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    path.write_bytes(b"".join(
+        b"@r%d\n%s\n+\n%s\n" % (i, acgt[b[i]].tobytes(), q[i].tobytes())
+        for i in range(len(b))))
+    return path
+
+
 @pytest.fixture(scope="module", params=[23, 33])
 def spectrum(card, request, tmp_path_factory):
     k = request.param
     b, q = _reads()
-    fq = tmp_path_factory.mktemp(f"gpu{k}") / "reads.fq"
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    fq.write_bytes(b"".join(
-        b"@r%d\n%s\n+\n%s\n" % (i, acgt[b[i]].tobytes(), q[i].tobytes())
-        for i in range(len(b))))
+    fq = _write_fq(tmp_path_factory.mktemp(f"gpu{k}") / "reads.fq", b, q)
     opt = Opts()
     opt.k = k
     opt.bf_shift = 24
@@ -103,3 +111,48 @@ def test_wrapper_refuses_cpu_table_for_card_reads(card, spectrum):
     cpu_table = ds.table._replace(table=ds.table.table.cpu())
     with pytest.raises(ValueError):
         ann.kcov_island(cpu_table, bases, lens, opt.min_cov)
+
+
+@pytest.mark.parametrize("k", [21, 51])
+def test_ke_kf_kg_kh_match_plain(card, tmp_path, k):
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    opt = Opts()
+    opt.k = k
+    opt.bf_shift = 24
+    agg = TC.AggBuilder(opt, card)
+    for bases, qok, lens, _ in TC.padded_batches(str(fq), opt, 2048):
+        agg.add(bases, qok, lens)
+    run = agg.fold()
+    _eq(sdn.pack_pull(run), sdn.pack_pull_plain(run))
+    ha = agg.pull(run)
+    ret = torch.from_numpy(ha.ret.view(np.int64)).to(card)
+    arr = torch.from_numpy(ha.first_arr.astype(np.uint32).view(np.int32)).to(card)
+    n = torch.from_numpy(ha.n.astype(np.int32)).to(card)
+    fp, keep = spec.adjudicate_sketch(ret, arr, n, opt.bf_shift, opt.n_hashes)
+    _eq((fp, keep), spec.adjudicate_sketch_plain(ret, arr, n, opt.bf_shift,
+                                                 opt.n_hashes))
+    words = TT.bloom_build(ret, keep, opt.bf_shift, opt.n_hashes)
+    _eq((words,), (TT.bloom_build_plain(ret, keep, opt.bf_shift,
+                                        opt.n_hashes),))
+    bases = torch.from_numpy(b[:1024]).to(card)
+    lens = torch.full((1024,), b.shape[1], dtype=torch.int32, device=card)
+    args = (words, bases, lens, k, opt.bf_shift, opt.n_hashes)
+    got = TT.max_streak_batch(*args)
+    _eq((got,), (TT.max_streak_plain(*args),))
+    assert int((got >> 32 > 0).sum()) > 512
+
+
+def test_trim_path_matches_cpu(card, tmp_path, monkeypatch):
+    """-1 -k51 -b24 with the host sketch off, so the verdict is KF's."""
+    monkeypatch.setenv("BFC_TPU_INC_ADJ", "0")
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    opt = Opts()
+    opt.k = 51
+    opt.bf_shift = 24
+    opt.filter_mode = True
+    rep = {}
+    got = TDP.run_device(opt, str(fq), device=card, report=rep)
+    assert rep["verdict"] == "KF" and rep["reads_kept"] > 0
+    assert got == TDP.run_device(opt, str(fq), device="cpu")

@@ -1,7 +1,8 @@
 """The CUDA kernels' per-read bodies, compiled for the CPU, against the
 plain PyTorch versions.
 
-csrc/*.cuh hold each kernel's per-read (KA, KC, KD) or per-row (KB) body
+csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH) or per-row (KB,
+KE, KF, KG) body
 as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
 over the reads or rows that one CUDA thread would take.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
@@ -11,6 +12,7 @@ reads, 1% errors).  Every output is an integer: the tolerance is exact
 equality."""
 
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -18,10 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from bfc_tpu_torch import kernels
 from bfc_tpu_torch.models import counter as TC
+from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as tann
 from bfc_tpu_torch.ops import kmer as tk
 from bfc_tpu_torch.ops import search as tsrch
+from bfc_tpu_torch.ops import spectrum as tspec
 from bfc_tpu_torch.ops import spectrum_dense as tsdn
 from bfc_tpu_torch.opts import Opts
 
@@ -46,8 +51,14 @@ def shim(tmp_path_factory):
     lib.kb_combine_host.argtypes = [LL] + [P] * 16
     lib.kc_host.argtypes = [P, I, I, I, I, I, P, P, I, I, P, P, P, P]
     lib.kd_host.argtypes = [P, I, I, I, I, P, I, I] + [P] * 8
+    lib.ke_host.argtypes = [LL] + [P] * 6
+    lib.kf_host.argtypes = [LL, P, P, P, I, I, P, P, P]
+    lib.kg_host.argtypes = [LL, P, P, I, I, P]
+    lib.kh_host.argtypes = [P, P, I, I, I, P, I, I, P]
+    lib.probe_bits_host.argtypes = [LL, P, I, I, P]
     for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
-              lib.kc_host, lib.kd_host):
+              lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
+              lib.kg_host, lib.kh_host, lib.probe_bits_host):
         f.restype = None
     return lib
 
@@ -187,3 +198,126 @@ def test_kd_body_matches_plain(shim, spectrum, caps):
         assert n_ovf == 0 and int((want_out[:, tsrch.N_EC] > 0).sum()) > 10
     else:
         assert 0 < n_ovf < B
+
+
+@pytest.mark.parametrize("bf_shift", [20, 33, 37])
+def test_bloom_probe_bits_body_matches_plain(shim, bf_shift):
+    rng = np.random.default_rng(bf_shift)
+    ret = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 5000,
+                                        dtype=np.int64))
+    for H in (1, 4, 7):
+        got = torch.empty((len(ret), H), dtype=torch.int64)
+        shim.probe_bits_host(len(ret), _p(ret), bf_shift, H, _p(got))
+        torch.testing.assert_close(
+            got, tspec.bloom_probe_bits(ret, bf_shift, H), rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module", params=[21, 51])
+def trim_agg(request, tmp_path_factory):
+    """A port trim aggregate (CPU, plain versions) at -b20, its run on the
+    host, and its KF inputs."""
+    k = request.param
+    d = tmp_path_factory.mktemp(f"trim{k}")
+    genome = datagen.make_genome(12000, seed=63)
+    reads = datagen.simulate_reads(genome, 1500, read_len=100,
+                                   err_rate=0.01, seed=64)
+    fq = f"{d}/reads.fq"
+    datagen.write_fastq(fq, reads)
+    opt = Opts()
+    opt.k = k
+    opt.bf_shift = 20
+    b = TC.AggBuilder(opt, "cpu")
+    for bases, qok, lens, _ in TC.padded_batches(fq, opt, 512):
+        b.add(bases, qok, lens)
+    run = b.fold()
+    agg = b.pull(run)
+    ret = torch.from_numpy(agg.ret.view(np.int64))
+    arr = torch.from_numpy(agg.first_arr.astype(np.uint32).view(np.int32))
+    n = torch.from_numpy(agg.n.astype(np.int32))
+    return opt, run, ret, arr, n, [s for s, _ in reads[:300]]
+
+
+def test_ke_body_matches_plain(shim, trim_agg):
+    _, run, _, _, _, _ = trim_agg
+    # counts and arrivals past the saturation and 2^32 points
+    run = tsdn.Run(run.shard, run.keybody, run.arr + (5 << 32), run.n * 300,
+                   run.n_high * 300, run.first_high, run.ret)
+    want = tsdn.pack_pull_plain(run)
+    C = len(run)
+    a_lo = torch.empty((C,), dtype=torch.int32)
+    nfh = torch.empty((C,), dtype=torch.int32)
+    shim.ke_host(C, _p(run.arr), _p(run.n), _p(run.n_high),
+                 _p(run.first_high), _p(a_lo), _p(nfh))
+    torch.testing.assert_close(a_lo, want.a_lo, rtol=0, atol=0)
+    torch.testing.assert_close(nfh, want.nfh, rtol=0, atol=0)
+
+
+def _kf_host(shim, opt, ret, arr, n):
+    C = len(ret)
+    dense = np.zeros((1 << opt.bf_shift,), np.uint32)
+    fp = torch.empty((C,), dtype=torch.bool)
+    keep = torch.empty((C,), dtype=torch.bool)
+    shim.kf_host(C, _p(ret), _p(arr), _p(n), opt.bf_shift, opt.n_hashes,
+                 dense.ctypes.data, _p(fp), _p(keep))
+    return fp, keep
+
+
+def test_kf_body_matches_plain(shim, trim_agg):
+    opt, _, ret, arr, n, _ = trim_agg
+    got = _kf_host(shim, opt, ret, arr, n)
+    want = tspec.adjudicate_sketch_plain(ret, arr, n, opt.bf_shift,
+                                         opt.n_hashes)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert int((want[0] & (n == 1)).sum()) > 0
+
+
+def _kg_host(shim, opt, ret, keep):
+    words = torch.zeros((1 << (opt.bf_shift - 5),), dtype=torch.int32)
+    shim.kg_host(len(ret), _p(ret), _p(keep), opt.bf_shift, opt.n_hashes,
+                 _p(words))
+    return words
+
+
+def test_kg_kh_bodies_match_plain(shim, trim_agg):
+    opt, _, ret, arr, n, seqs = trim_agg
+    _, keep = tspec.adjudicate_sketch_plain(ret, arr, n, opt.bf_shift,
+                                            opt.n_hashes)
+    words = _kg_host(shim, opt, ret, keep)
+    torch.testing.assert_close(
+        words, TT.bloom_build_plain(ret, keep, opt.bf_shift, opt.n_hashes),
+        rtol=0, atol=0)
+    seqs = seqs + ["ACGTN" * 30, "", seqs[0][:opt.k - 1]]
+    bases, _, lens = tk.encode_batch(seqs, None, opt.q)
+    bases, lens = torch.from_numpy(bases), torch.from_numpy(lens)
+    B, L = bases.shape
+    got = torch.empty((B,), dtype=torch.int64)
+    shim.kh_host(_p(bases), _p(lens), B, L, opt.k, _p(words), opt.bf_shift,
+                 opt.n_hashes, _p(got))
+    want = TT.max_streak_plain(words, bases, lens, opt.k, opt.bf_shift,
+                               opt.n_hashes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (want[:300] >> 32 > 0).float().mean() > 0.75
+
+
+def _c_param_types(params: str):
+    out = []
+    for p in params.split(","):
+        p = p.strip()
+        out.append(ctypes.c_void_p if "*" in p else
+                   ctypes.c_longlong if p.startswith("long long") else
+                   ctypes.c_int)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_launcher_bindings_match_c_signatures(name):
+    """Every ctypes binding of kernels.py lists the C entry point's
+    parameters, stream included: a missing one would pass a pointer
+    through the default int conversion."""
+    k = kernels.KERNELS[name]
+    src = k.source.read_text()
+    found = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert set(found) == set(k.signatures)
+    for fn, argtypes in k.signatures.items():
+        assert _c_param_types(found[fn]) == argtypes, fn

@@ -1,4 +1,5 @@
-"""Counting runs, merges, the aggregate, finalize and the cuckoo probe of
+"""Counting runs, merges, the packed pull (KE), the aggregate, finalize,
+the Bloom first-occurrence verdict (KF) and the cuckoo probe of
 bfc_tpu_torch against bfc_tpu on JAX-CPU.
 
 Inputs come from tests/datagen.py (a 12 kb genome, 100 bp reads, 1%
@@ -11,12 +12,15 @@ import pytest
 import torch
 
 from bfc_tpu.models import counter as JC
+from bfc_tpu.models import trimmer as JT
 from bfc_tpu.ops import spectrum as jspec
 from bfc_tpu.ops import spectrum_dense as jsdn
 from bfc_tpu.opts import Opts as JOpts
 from bfc_tpu_torch.models import counter as TC
+from bfc_tpu_torch.ops import kmer as tk
 from bfc_tpu_torch.ops import spectrum as tspec
 from bfc_tpu_torch.ops import spectrum_dense as tsdn
+from bfc_tpu_torch.ops import spectrum_host as tsph
 from bfc_tpu_torch.opts import Opts
 
 from . import datagen
@@ -155,3 +159,82 @@ def test_cuckoo_alt_matches_jax(c_bits):
     got = tspec.cuckoo_alt(torch.from_numpy(q.view(np.int64)), c_bits).numpy()
     np.testing.assert_array_equal(got.view(np.uint64), want)
     np.testing.assert_array_equal(tspec.cuckoo_alt_np(q, c_bits), want)
+
+
+def _u32_planes(x):
+    return (x >> np.uint64(32)).astype(np.uint32), x.astype(np.uint32)
+
+
+@pytest.mark.parametrize("k", [21, 51])
+def test_pack_pull_matches_jax(k):
+    """KE's plain version and its host twin against bfc_tpu's pack_pull and
+    packed_run_to_host_agg, field for field, on rows with n > 511,
+    n_high > 127 and arrivals past 2^32; ret is carried at k = 51 and
+    derived at k = 21."""
+    l_pre = _opts(JOpts, k).effective_l_pre()
+    n_id, _, carry = jsdn.run_layout(k, l_pre)
+    kb_bits = tk.keybody_bits(k, l_pre)
+    rng = np.random.default_rng(k)
+    C = 4000
+    shard = rng.integers(0, 1 << l_pre, C).astype(np.uint32)
+    keybody = rng.integers(0, 1 << kb_bits, C, dtype=np.uint64)
+    arr = rng.integers(0, 1 << 46, C, dtype=np.uint64)
+    arr[: C // 2] &= np.uint64(0xFFFFFFFF)
+    n = rng.integers(1, 1500, C).astype(np.uint32)
+    n[: C // 4] = 1
+    n_high = (rng.random(C) * (n + 1)).astype(np.uint32)
+    first_high = (rng.random(C) < 0.7).astype(np.uint32) & (n_high > 0)
+    ret = rng.integers(0, 1 << 64, C, dtype=np.uint64) if carry else None
+    assert (n > 511).any() and (n_high > 127).any()
+    kb = list(_u32_planes(keybody)) if kb_bits > 32 else [keybody.astype(np.uint32)]
+    planes = ([shard] + kb + list(_u32_planes(arr))
+              + [n, n_high | (first_high << np.uint32(31))]
+              + (list(_u32_planes(ret)) if carry else []))
+    jp = jsdn.pack_pull(tuple(jnp.asarray(p) for p in planes), n_id=n_id)
+    want = jsdn.packed_run_to_host_agg([np.asarray(p) for p in jp], C, k,
+                                       l_pre)
+    run = tsdn.Run(*(torch.from_numpy(x) for x in (
+        shard.astype(np.int64), keybody.view(np.int64), arr.view(np.int64),
+        n.astype(np.int64), n_high.astype(np.int64),
+        first_high.astype(np.uint8))),
+        None if ret is None else torch.from_numpy(ret.view(np.int64)))
+    pk = tsdn.pack_pull(run)
+    got = tsdn.packed_run_to_host_agg(
+        *(None if f is None else f.numpy() for f in pk), k, l_pre)
+    for f in ("shard", "keybody", "n", "n_high", "first_arr", "first_high"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+    want_ret = want.ret if carry else tsdn.derive_ret_np(shard, keybody, k, l_pre)
+    np.testing.assert_array_equal(got.ret, want_ret)
+    assert got.n.max() == 511 and got.n_high.max() == 127
+    assert (got.first_arr >> np.uint64(32)).max() > 0
+
+
+@pytest.mark.parametrize("bf_shift", [20, 24, 33])
+def test_bloom_adjudicate_matches_jax(fastq, bf_shift):
+    """KF's plain version (a sort) against bfc_tpu's adjudicate_sketch,
+    adjudicate_first_occurrence and filter_keep_rets on a counted
+    aggregate, and against the host adjudicate_np.  At -b33 bfc_tpu's
+    sketch needs a 32 GiB array and casts bit ids to u32, so only the host
+    sort is compared there."""
+    jo = _opts(JOpts, 21, bf_shift)
+    jagg, _ = JC.count_batches_aggregate(fastq, jo, batch_reads=512)
+    C = len(jagg.shard)
+    fp, keep = tspec.adjudicate_sketch(
+        torch.from_numpy(jagg.ret.view(np.int64)),
+        torch.from_numpy(jagg.first_arr.astype(np.uint32).view(np.int32)),
+        torch.from_numpy(jagg.n.astype(np.int32)), bf_shift, jo.n_hashes)
+    fp, keep = fp.numpy(), keep.numpy()
+    want = tsph.adjudicate_np(jagg.ret, jagg.first_arr, np.ones(C, bool),
+                              bf_shift, jo.n_hashes)
+    np.testing.assert_array_equal(fp, want)
+    np.testing.assert_array_equal(keep, (jagg.n >= 2) | fp)
+    if bf_shift <= 24:
+        agg = jspec.Aggregate(*(jnp.asarray(getattr(jagg, f)) for f in
+                                jspec.Aggregate._fields))
+        for fn in (jspec.adjudicate_sketch, jspec.adjudicate_first_occurrence):
+            np.testing.assert_array_equal(
+                fp, np.asarray(fn(agg, bf_shift, jo.n_hashes)))
+        _, jkeep = JT.filter_keep_rets(agg, bf_shift, jo.n_hashes, sketch=True)
+        np.testing.assert_array_equal(keep, np.asarray(jkeep))
+    if bf_shift == 20:
+        assert 0 < int(fp.sum()) and int((fp & (jagg.n == 1)).sum()) > 0

@@ -67,6 +67,45 @@ BFC_HD int cuckoo_probe(const SpecParams& sp, int64_t shard,
     return -1;
 }
 
+#ifdef __CUDA_ARCH__
+#define BFC_ATOMIC_EXCH_U64(p, v) \
+    atomicExch((unsigned long long*)(p), (unsigned long long)(v))
+#else
+#define BFC_ATOMIC_EXCH_U64(p, v) bfc_exch_u64((p), (v))
+inline uint64_t bfc_exch_u64(uint64_t* p, uint64_t v) {
+    uint64_t old = *p;
+    *p = v;
+    return old;
+}
+#endif
+
+// The entry of a (shard, keybody, payload) key in its first slot (nest 0);
+// *slot receives that slot.
+BFC_HD uint64_t cuckoo_entry(int64_t shard, int64_t keybody, int payload,
+                             int l_pre, int kb_bits, int c_bits,
+                             uint64_t* slot) {
+    *slot = posk64(shard, keybody, l_pre, kb_bits) >> (64 - c_bits);
+    return id_low(shard, keybody, l_pre, kb_bits, c_bits) << 15 |
+           (uint64_t)(payload & 0x3FFF);
+}
+
+// KL's insert (replaces cuckoo_build_device's placement rounds,
+// spectrum.py:543): swap entry e into its slot; an evicted entry moves to
+// its other slot, slot ^ cuckoo_alt(qlow), with its nest bit flipped, so
+// the chain needs nothing but the entries.  Every exchange is atomic, so
+// no entry is lost or doubled; returns false when the chain reaches
+// max_steps and the entry in hand is dropped.
+BFC_HD bool cuckoo_insert(uint64_t* table, uint64_t e, uint64_t slot,
+                          int c_bits, int max_steps) {
+    for (int step = 0; step < max_steps; step++) {
+        uint64_t old = BFC_ATOMIC_EXCH_U64(table + slot, e);
+        if ((old & 0x3FFF) == 0) return true;
+        slot ^= cuckoo_alt(old >> 15, c_bits);
+        e = old ^ (1ull << 14);
+    }
+    return false;
+}
+
 // Payload of the k-mer held in the 4-plane state x (CountHash.kmer_occ).
 BFC_HD int kmer_occ(const SpecParams& sp, const uint64_t x[4]) {
     uint64_t h0, h1;

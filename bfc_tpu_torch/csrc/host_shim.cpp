@@ -7,7 +7,9 @@
 // the tests can hold the CUDA logic against the plain PyTorch versions
 // on a machine without a card.
 #include "bloom.cuh"
+#include "cuckoo.cuh"
 #include "ec1_search.cuh"
+#include "finalize.cuh"
 #include "kcov_island.cuh"
 #include "kmer_stream.cuh"
 #include "run_combine.cuh"
@@ -106,6 +108,48 @@ void kh_host(const uint8_t* bases, const int32_t* lens, int B, int L, int k,
     for (int r = 0; r < B; r++)
         out[r] = kh_read(bases + (size_t)r * L, lens[r], k, words, bf_shift,
                          n_hashes);
+}
+
+void ki_host(long long n_blocks, const int64_t* starts, const int64_t* perm,
+             const int64_t* ret, const int64_t* arr, int bf_shift,
+             int n_hashes, uint8_t* fp) {
+    uint32_t bm[16];
+    for (long long s = 0; s < n_blocks; s++)
+        ki_block(starts[s], starts[s + 1], perm, ret, arr, bf_shift,
+                 n_hashes, bm, fp);
+}
+
+void kj_host(long long C, const int64_t* shard, const int64_t* keybody,
+             int k, int l_pre, int64_t* ret) {
+    for (long long i = 0; i < C; i++) kj_row(i, shard, keybody, k, l_pre, ret);
+}
+
+// hist and hist_high must be zeroed.
+void kk_host(long long C, const int64_t* n, const int64_t* n_high,
+             const uint8_t* first_high, const uint8_t* fp, int32_t* payload,
+             uint8_t* keep, int64_t* hist, int64_t* hist_high) {
+    for (long long i = 0; i < C; i++) {
+        int32_t p = kk_row(i, n, n_high, first_high, fp, payload, keep);
+        if (p) {
+            hist[p & 255]++;
+            hist_high[p >> 8]++;
+        }
+    }
+}
+
+// KL's inserts one key after another into a zeroed table; returns the
+// number of keys whose chain failed.
+int kl_host(long long n, const int64_t* shard, const int64_t* keybody,
+            const int32_t* payload, int l_pre, int kb_bits, int c_bits,
+            uint64_t* table, int max_steps) {
+    int fail = 0;
+    for (long long i = 0; i < n; i++) {
+        uint64_t slot;
+        uint64_t e = cuckoo_entry(shard[i], keybody[i], payload[i], l_pre,
+                                  kb_bits, c_bits, &slot);
+        fail += !cuckoo_insert(table, e, slot, c_bits, max_steps);
+    }
+    return fail;
 }
 
 void probe_bits_host(long long C, const int64_t* ret, int bf_shift,

@@ -104,7 +104,20 @@ KG = Kernel("bloom_build", {
 KH = Kernel("max_streak", {
     "kh_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P],
 })
-KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH)}
+KI = Kernel("first_occurrence", {
+    "ki_launch": [_LL, _P, _P, _P, _P, _I, _I, _P, _P],
+})
+KJ = Kernel("derive_ret", {
+    "kj_launch": [_LL, _P, _P, _I, _I, _P, _P],
+})
+KK = Kernel("finalize_counts", {
+    "kk_launch": [_LL] + [_P] * 9,
+})
+KL = Kernel("cuckoo_build", {
+    "kl_launch": [_LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+})
+KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH, KI, KJ, KK,
+                               KL)}
 
 
 def reset_launches() -> None:

@@ -2,15 +2,19 @@
 
 Counterpart of bfc_tpu/models/counter.py: read batches stream through
 kernel KA, the sort and kernel KB into sorted runs; runs fold into a
-binary-counter merge tree that stays on the card; finish pulls the aggregate to the
-host once, where the Bloom first-occurrence adjudication and the cuckoo
-table build run (spectrum_host, numpy and C), and the table goes back to
-the card as one int64 tensor.  Reproduces the reference counting pass
+binary-counter merge tree that stays on the card.  By default finish
+pulls the aggregate to the host once (KE), where the Bloom
+first-occurrence adjudication and the cuckoo table build run
+(spectrum_host, numpy and C), and the table goes back to the card as one
+int64 tensor.  With the device finalize (BFC_TPU_DEVICE_FINALIZE=1, or
+device_finalize=True) the folded run stays on the card and KJ, KF or KI,
+KK and KL finalize it there.  Reproduces the reference counting pass
 (count.c:127-157) under sequential stream order (bfc -t1).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Tuple
 
@@ -39,11 +43,14 @@ def _mode_from_hist(hist: np.ndarray) -> int:
 
 
 class DeviceSpectrum:
-    """Finalized spectrum: the cuckoo table on the device plus metadata."""
+    """Finalized spectrum: the cuckoo table on the device plus metadata.
+
+    compact is the host copy of the kept (shard, keybody, payload) entries,
+    sorted, or a function that pulls it from the card at first use."""
 
     def __init__(self, table: spec.SpecTable, n_entries: int,
-                 hist: np.ndarray, hist_high: np.ndarray,
-                 compact: Tuple[np.ndarray, np.ndarray, np.ndarray]):
+                 hist: np.ndarray, hist_high: np.ndarray, compact,
+                 verdict: str = "host"):
         self.table = table
         self.k = table.k
         self.l_pre = table.l_pre
@@ -53,32 +60,50 @@ class DeviceSpectrum:
         self.hist = hist
         self.hist_high = hist_high
         self.mode = _mode_from_hist(hist)
-        self._compact = compact  # host (shard, keybody, payload), sorted
+        self._compact = compact
+        self.verdict = verdict  # which first-occurrence verdict ran
         # the counting pass that built it (count_file_device), else 0
         self.n_reads = 0
         self.n_aggregated = 0
 
     def compact_entries(self):
+        if callable(self._compact):
+            self._compact = self._compact()
         return self._compact
+
+
+def device_finalize_on(device_finalize: Optional[bool] = None) -> bool:
+    """The finalize mode: the argument, else BFC_TPU_DEVICE_FINALIZE=1."""
+    if device_finalize is None:
+        return os.environ.get("BFC_TPU_DEVICE_FINALIZE", "0") == "1"
+    return bool(device_finalize)
+
+
+def table_c_bits(n: int, k: int, l_pre: int, c_bits_hint: int = 0) -> int:
+    """c_bits of the cuckoo table of n entries, in both finalize modes.
+
+    It follows bfc_tpu's _spectrum_from_sorted (load <= 0.4, the
+    genome-size hint), raised so that qlow, the l_pre + kb_bits identity
+    bits the slot does not give, fits the entry's 49 bits for every k up
+    to 63.  A bigger table never changes a lookup."""
+    kb_bits = kops.keybody_bits(k, l_pre)
+    return max(8, int(np.ceil(np.log2(max(n, 1) * 2.5 + 1))), c_bits_hint,
+               l_pre + kb_bits - 49)
 
 
 def spectrum_from_compact(shard: np.ndarray, keybody: np.ndarray,
                           payload: np.ndarray, k: int, l_pre: int,
-                          device, c_bits_hint: int = 0) -> DeviceSpectrum:
-    """Cuckoo table from compact (shard, keybody, payload) entries.
-
-    c_bits follows bfc_tpu's _spectrum_from_sorted (load <= 0.4, the
-    genome-size hint), raised so that qlow, the l_pre + kb_bits identity
-    bits the slot does not give, fits the entry's 49 bits for every k up
-    to 63; a failed placement retries one bit larger.  A bigger table
-    never changes a lookup."""
+                          device, c_bits_hint: int = 0,
+                          verdict: str = "host") -> DeviceSpectrum:
+    """Cuckoo table from compact (shard, keybody, payload) entries, built
+    on the host; c_bits by table_c_bits, and a failed placement retries
+    one bit larger."""
     shard = np.asarray(shard, np.uint32)
     keybody = np.asarray(keybody, np.uint64)
     payload = np.asarray(payload, np.uint32)
     n = len(shard)
     kb_bits = kops.keybody_bits(k, l_pre)
-    c_bits = max(8, int(np.ceil(np.log2(max(n, 1) * 2.5 + 1))), c_bits_hint,
-                 l_pre + kb_bits - 49)
+    c_bits = table_c_bits(n, k, l_pre, c_bits_hint)
     while True:
         entries, ok = sph.build_cuckoo_table_host(
             shard, keybody, payload, c_bits, l_pre, kb_bits)
@@ -91,7 +116,8 @@ def spectrum_from_compact(shard: np.ndarray, keybody: np.ndarray,
     hist[0] = 0
     hist_high = np.bincount((payload >> 8) & 0x3F, minlength=64)[:64]
     return DeviceSpectrum(spec.SpecTable(table, k, l_pre, kb_bits, c_bits),
-                          n, hist, hist_high, (shard, keybody, payload))
+                          n, hist, hist_high, (shard, keybody, payload),
+                          verdict)
 
 
 class AggBuilder:
@@ -164,12 +190,18 @@ class AggBuilder:
             func="AggBuilder")
         return ha
 
-    def finish(self) -> sph.HostAgg:
-        """Fold the tree, pull the aggregate and attach the Bloom sketch."""
+    def finish(self, device_finalize: Optional[bool] = None):
+        """Fold the tree.  For the device finalize (device_finalize_on)
+        return the folded Run as it lies on the card, as bfc_tpu skips its
+        pull and sketch there (counter.py:601-610); else pull the
+        aggregate and attach the Bloom sketch: a HostAgg."""
         acc = self.fold()
+        if acc is not None:
+            log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
+        if device_finalize_on(device_finalize):
+            return sdn.empty_run(self.device) if acc is None else acc
         if acc is None:
             return sph.empty_host_agg()
-        log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
         ha = self.pull(acc)
         t0 = time.time()
         sketch = sph.BloomMinSketch.create(self.opt.bf_shift, self.opt.n_hashes)
@@ -215,38 +247,125 @@ def padded_batches(fn: str, opt: Opts, batch_reads: int):
 
 
 def count_batches_aggregate(fn: str, opt: Opts, device,
-                            batch_reads: int = 8192):
-    """Aggregate a FASTQ file via the native batched reader (hot path)."""
+                            batch_reads: int = 8192,
+                            device_finalize: Optional[bool] = None):
+    """Aggregate a FASTQ file via the native batched reader (hot path):
+    (AggBuilder.finish's aggregate, number of reads)."""
     agg_tree = AggBuilder(opt, device)
     n_reads = 0
     for bases, qok, lens, n in padded_batches(fn, opt, batch_reads):
         agg_tree.add(bases, qok, lens)
         n_reads += n
-    return agg_tree.finish(), n_reads
+    return agg_tree.finish(device_finalize), n_reads
 
 
-def finalize_spectrum(agg: sph.HostAgg, opt: Opts, device) -> DeviceSpectrum:
-    """Adjudicate + payloads (host), then the cuckoo table (to the card)."""
+def usable_sketch(agg, opt: Opts):
+    """The Bloom sketch riding a HostAgg if it holds this Bloom's verdicts
+    (bf_shift, n_hashes), else None."""
+    sketch = getattr(agg, "bloom_min", None)
+    if (sketch is not None and sketch.valid and sketch.bf_shift == opt.bf_shift
+            and sketch.n_hashes == opt.n_hashes):
+        return sketch
+    return None
+
+
+def host_agg_to_run(agg: sph.HostAgg, device) -> sdn.Run:
+    """A host aggregate as a Run on device (its ret kept where present)."""
+    def col(x, view=None):
+        x = np.asarray(x)
+        x = x.view(np.int64) if view else x.astype(np.int64)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return sdn.Run(col(agg.shard), col(agg.keybody, True),
+                   col(agg.first_arr, True), col(agg.n), col(agg.n_high),
+                   col(agg.first_high).to(torch.uint8),
+                   None if agg.ret is None else col(agg.ret, True))
+
+
+def finalize_on_device(run: sdn.Run, opt: Opts, device) -> DeviceSpectrum:
+    """The device finalize of a folded run (bfc_tpu's finalize_spectrum
+    with host=False, counter.py:745-819): KJ where ret is not carried,
+    the verdict (KF, or KI past 2^32 arrivals), KK, the kept rows
+    compacted, and KL, retried one bit larger on a failed placement.  The
+    host copy of the entries is pulled at first use."""
+    t0 = time.time()
+    k, l_pre = opt.k, opt.effective_l_pre()
+    kb_bits = kops.keybody_bits(k, l_pre)
+    run = sdn.run_to_aggregate(run, k, l_pre)
+    fp, _, verdict = spec.adjudicate(run.ret, run.arr, run.n, opt.bf_shift,
+                                     opt.n_hashes)
+    payload, keep, hist, hist_high = spec.finalize_counts(
+        run.n, run.n_high, run.first_high, fp)
+    idx = torch.nonzero(keep).flatten()
+    shard, keybody, payload = run.shard[idx], run.keybody[idx], payload[idx]
+    n = idx.shape[0]
+    t1 = time.time()
+    c_bits = table_c_bits(n, k, l_pre, opt.predicted_c_bits())
+    while True:
+        table, ok = spec.cuckoo_build(shard, keybody, payload, k, l_pre,
+                                      kb_bits, c_bits)
+        if ok:
+            break
+        log(f"cuckoo placement failed at c_bits {c_bits}; retrying larger")
+        c_bits += 1
+
+    def pull():
+        return (shard.cpu().numpy().astype(np.uint32),
+                keybody.cpu().numpy().view(np.uint64),
+                payload.cpu().numpy().view(np.uint32))
+
+    ds = DeviceSpectrum(spec.SpecTable(table, k, l_pre, kb_bits, c_bits), n,
+                        hist.cpu().numpy(), hist_high.cpu().numpy(), pull,
+                        verdict)
+    log(f"# distinct k-mers in table: {n} (device finalize: {verdict} "
+        f"verdict and payloads {t1 - t0:.1f}s, table "
+        f"{time.time() - t1:.1f}s, c_bits {c_bits})")
+    return ds
+
+
+def finalize_spectrum(agg, opt: Opts, device,
+                      host: Optional[bool] = None) -> DeviceSpectrum:
+    """Adjudicate + payloads, then the cuckoo table on the card.
+
+    agg is AggBuilder.finish's aggregate.  host=None finalizes a device
+    Run on the card, and a HostAgg where BFC_TPU_DEVICE_FINALIZE says
+    (the host by default), as bfc_tpu's finalize_spectrum (counter.py:
+    707-725) chooses; host=False takes a HostAgg to the card first."""
+    if host is None:
+        host = not isinstance(agg, sdn.Run) and not device_finalize_on()
+    if not host:
+        if not isinstance(agg, sdn.Run):
+            agg = host_agg_to_run(agg, device)
+        return finalize_on_device(agg, opt, device)
+    if isinstance(agg, sdn.Run):
+        raise ValueError("the host finalize takes a HostAgg: pull the run "
+                         "with AggBuilder.pull")
     t0 = time.time()
     k = opt.k
     l_pre = opt.effective_l_pre()
     shard_c, keybody_c, payload_c, _, _ = sph.finalize_host(
         agg, opt.bf_shift, opt.n_hashes, k=k, l_pre=l_pre)
     t1 = time.time()
+    verdict = "host sketch" if usable_sketch(agg, opt) else "host sort"
     ds = spectrum_from_compact(shard_c, keybody_c, payload_c, k, l_pre,
-                               device, c_bits_hint=opt.predicted_c_bits())
+                               device, c_bits_hint=opt.predicted_c_bits(),
+                               verdict=verdict)
     log(f"# distinct k-mers in table: {len(shard_c)} "
         f"(adjudicate {t1 - t0:.1f}s, table {time.time() - t1:.1f}s, "
         f"c_bits {ds.c_bits})")
     return ds
 
 
-def count_file_device(fn: str, opt: Opts, device,
-                      batch_reads: int = 8192) -> DeviceSpectrum:
-    """Counting pass over a FASTQ file (native batched reader)."""
-    agg, n_reads = count_batches_aggregate(fn, opt, device, batch_reads)
+def count_file_device(fn: str, opt: Opts, device, batch_reads: int = 8192,
+                      device_finalize: Optional[bool] = None
+                      ) -> DeviceSpectrum:
+    """Counting pass over a FASTQ file (native batched reader), finalized
+    on the host or, with device_finalize (default: device_finalize_on()),
+    on the card."""
+    on = device_finalize_on(device_finalize)
+    agg, n_reads = count_batches_aggregate(fn, opt, device, batch_reads, on)
     log(f"processed {n_reads} sequences")
-    ds = finalize_spectrum(agg, opt, device)
+    ds = finalize_spectrum(agg, opt, device, host=not on)
     ds.n_reads, ds.n_aggregated = n_reads, len(agg.shard)
     return ds
 

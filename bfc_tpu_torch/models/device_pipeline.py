@@ -20,7 +20,7 @@ from ..io.fastq import Read, format_corrected, pack_stats
 from ..opts import Opts
 from ..utils.log import log
 from .corrector import BatchResult, Corrector
-from .counter import DeviceSpectrum, count_file_device
+from .counter import DeviceSpectrum, count_file_device, device_finalize_on
 from .trimmer import Trimmer, count_file_filter_device, popcount
 
 
@@ -128,21 +128,26 @@ def _emit_rb_python(rb, res: BatchResult, opt: Opts, out) -> None:
 def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                no_ec: bool = False, batch_reads: int = 8192,
                count_batch_reads: int = 16384, sink=None,
-               device=None, report: Optional[dict] = None) -> str:
+               device=None, report: Optional[dict] = None,
+               device_finalize: Optional[bool] = None) -> str:
     """Count, then correct (or, with opt.filter_mode, trim); returns the
     output text (reference stdout).
 
     With `sink` (a binary file-like), records stream out as batches
     finish and the return value is "".  device: "cuda" (the default) or
-    "cpu", which runs every kernel's plain version instead.  A `report`
-    dict receives the phase wall times (each ending in a device
-    synchronize) and counts: for correction the read and k-mer counts,
+    "cpu", which runs every kernel's plain version instead.
+    device_finalize: finalize the counting aggregate on the card rather
+    than the host (default: BFC_TPU_DEVICE_FINALIZE=1).  A `report` dict
+    receives the phase wall times (each ending in a device synchronize),
+    the finalize mode ("host" or "device") and which first-occurrence
+    verdict ran, and counts: for correction the read and k-mer counts,
     the spectrum and the number of reads corrected by the scalar
     fallback; for trim the reads kept and dropped, the k-mers kept, the
     set bits of the Bloom filter and the filter itself."""
     from ..io.writer import OutputWriter
 
     dev = resolve_device(device)
+    on = device_finalize_on(device_finalize)
     out = OutputWriter(sink)
     next_fn = correct_fn if correct_fn is not None else count_fn
     t0 = time.time()
@@ -150,7 +155,7 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
         info = {} if report is not None else None
         bloom = count_file_filter_device(count_fn, opt, dev,
                                          batch_reads=count_batch_reads,
-                                         info=info)
+                                         info=info, device_finalize=on)
         _sync(dev)
         t1 = time.time()
         trimmer = Trimmer(opt, bloom)
@@ -163,7 +168,9 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                           reads_dropped=trimmer.n_reads - trimmer.n_kept,
                           n_set_bits=popcount(bloom.words), bloom=bloom)
     else:
-        ds = count_file_device(count_fn, opt, dev, batch_reads=count_batch_reads)
+        ds = count_file_device(count_fn, opt, dev,
+                               batch_reads=count_batch_reads,
+                               device_finalize=on)
         _sync(dev)
         t1 = time.time()
         corr = None
@@ -173,6 +180,7 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
             _sync(dev)
         if report is not None:
             report.update(
+                finalize="device" if on else "host", verdict=ds.verdict,
                 count_s=t1 - t0, correct_s=time.time() - t1,
                 n_reads=ds.n_reads, n_aggregated=ds.n_aggregated,
                 n_kept=ds.n_entries, spectrum=ds,

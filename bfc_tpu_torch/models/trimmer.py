@@ -4,11 +4,13 @@ KG) and each read's longest run of k-mers in it (KH).
 Counterpart of bfc_tpu/models/trimmer.py, mirroring the reference's
 second Bloom filter path (count.c:67-68,148-153) and max_streak trimming
 (correct.c:478-497,554-570).  The counting pass is the main path's; its
-aggregate is pulled once (KE), a k-mer is kept when it occurred twice or
-its first occurrence already found its Bloom bits set (the host sketch's
-verdict where bfc_tpu takes it, KF on the card otherwise), and KG ORs the
-kept k-mers' bits into the words of bf_high.  Reads then stream through
-KH in batches and are trimmed to their longest streak or dropped.
+aggregate is pulled once (KE), or with the device finalize stays on the
+card.  A k-mer is kept when it occurred twice or its first occurrence
+already found its Bloom bits set (the host sketch's verdict where
+bfc_tpu takes it, on the card KF, or KI past 2^32 arrivals), and KG ORs
+the kept k-mers' bits into the words of bf_high.  Reads then stream
+through KH in batches and are trimmed to their longest streak or
+dropped.
 """
 
 from __future__ import annotations
@@ -25,12 +27,11 @@ from ..io.fastq import Read, format_corrected
 from ..opts import Opts
 from ..ops import kmer as kops
 from ..ops import spectrum as spec
+from ..ops import spectrum_dense as sdn
 from ..ops.spectrum_dense import as_i32
 from ..utils.log import log
-from .counter import count_batches_aggregate
+from .counter import count_batches_aggregate, usable_sketch
 from .refmodel import bloom_probes
-
-ARRIVAL_LIMIT = 0xFFFFFFFF  # KF keeps ~arrival in u32; 0 marks "unset"
 
 
 # ---------------------------------------------------------------------------
@@ -169,38 +170,42 @@ def max_streak_batch(words, bases, lens, k: int, bf_shift: int,
 
 def count_file_filter_device(fn: str, opt: Opts, device,
                              batch_reads: int = 16384,
-                             info: Optional[dict] = None) -> DeviceBloom:
+                             info: Optional[dict] = None,
+                             device_finalize: Optional[bool] = None
+                             ) -> DeviceBloom:
     """Count fn and build bf_high from the k-mers that enter it.
 
-    The verdict comes from the host Bloom sketch where bfc_tpu takes it
-    (bf_shift <= 31, trimmer.py:109-120) and from KF otherwise.  KF needs
-    arrivals below 2^32 - 1, which bfc_tpu's sort adjudicate lifts: that
-    is still to port (ROADMAP Queue 2, K12b), so larger streams raise.
-    `info` receives the read and k-mer counts, which verdict ran, the host
-    aggregate and the keep flags."""
+    With the host finalize (the default; device_finalize_on) the
+    aggregate is pulled, and the verdict comes from the host Bloom sketch
+    where bfc_tpu takes it (bf_shift <= 31, trimmer.py:109-120).  Else,
+    and always with the device finalize, where the run stays on the card
+    (KJ fills in ret where it is not carried), spec.adjudicate gives it:
+    KF, or KI once arrivals reach 2^32 - 1 (trimmer.py:121-130).  `info`
+    receives the read and k-mer counts, which verdict ran, the aggregate
+    (a HostAgg, or the device Run) and the keep flags."""
     dev = torch.device(device)
-    agg, n_reads = count_batches_aggregate(fn, opt, dev, batch_reads)
+    agg, n_reads = count_batches_aggregate(fn, opt, dev, batch_reads,
+                                           device_finalize)
     t0 = time.time()
     # runs hold no padding rows: every aggregate row is a k-mer
-    sketch = agg.bloom_min
-    ret = torch.from_numpy(agg.ret.view(np.int64)).to(dev)
-    if (sketch is not None and sketch.valid and sketch.bf_shift == opt.bf_shift
-            and sketch.n_hashes == opt.n_hashes):
+    sketch = usable_sketch(agg, opt)
+    if isinstance(agg, sdn.Run):
+        run = sdn.run_to_aggregate(agg, opt.k, opt.effective_l_pre())
+        ret = run.ret
+        _, keep, verdict = spec.adjudicate(ret, run.arr, run.n, opt.bf_shift,
+                                           opt.n_hashes)
+    elif sketch is not None:
+        ret = torch.from_numpy(agg.ret.view(np.int64)).to(dev)
         fp = sketch.verdict(agg.ret, agg.first_arr,
                             np.ones(len(agg.ret), bool)).astype(np.int64)
         keep = torch.from_numpy(agg.n.astype(np.int64) - 1 + fp >= 1).to(dev)
         verdict = "host sketch"
     else:
-        arr_max = int(agg.first_arr.max()) if len(agg.first_arr) else 0
-        if arr_max >= ARRIVAL_LIMIT:
-            raise RuntimeError(
-                f"trim count: first arrival {arr_max} reaches 2^32 - 1; the "
-                "sort adjudicate on the card is ROADMAP Queue 2 (K12b)")
-        arr = torch.from_numpy(agg.first_arr.astype(np.uint32).view(np.int32))
-        n = torch.from_numpy(np.minimum(agg.n, 0x7FFFFFFF).astype(np.int32))
-        _, keep = spec.adjudicate_sketch(ret, arr.to(dev), n.to(dev),
-                                         opt.bf_shift, opt.n_hashes)
-        verdict = "KF"
+        ret = torch.from_numpy(agg.ret.view(np.int64)).to(dev)
+        arr = torch.from_numpy(agg.first_arr.view(np.int64)).to(dev)
+        n = torch.from_numpy(agg.n.astype(np.int64)).to(dev)
+        _, keep, verdict = spec.adjudicate(ret, arr, n, opt.bf_shift,
+                                           opt.n_hashes)
     bloom = DeviceBloom.from_rets(ret, keep, opt.bf_shift, opt.n_hashes)
     n_kept = int(keep.sum())
     log(f"processed {n_reads} sequences (filter mode); {n_kept} of "
@@ -208,7 +213,8 @@ def count_file_filter_device(fn: str, opt: Opts, device,
         f"build {time.time() - t0:.1f}s")
     if info is not None:
         info.update(n_reads=n_reads, n_aggregated=len(ret), n_kept=n_kept,
-                    verdict=verdict, aggregate=agg, keep=keep)
+                    verdict=verdict, aggregate=agg, keep=keep,
+                    finalize="device" if isinstance(agg, sdn.Run) else "host")
     return bloom
 
 

@@ -1,5 +1,6 @@
-"""The spectrum lookup table, the Bloom probe addressing and the
-first-occurrence Bloom verdict (kernel KF).
+"""The spectrum lookup table, the Bloom probe addressing, the
+first-occurrence Bloom verdicts (kernels KF and KI) and the device
+finalize (kernels KK and KL).
 
 Counterpart of the CuckooTable layout of bfc_tpu/ops/spectrum.py (:286)
 and its probes cuckoo_lookup (:687) and cuckoo_lookup32 (:721).  The
@@ -10,9 +11,12 @@ csrc/cuckoo.cuh, inlined into kernels KC and KD; this module holds its
 plain versions (vectorized, and per k-mer in Python integers for the
 plain search) and the helpers the host table build shares.
 
-bloom_probe_bits is the plain twin of csrc/bloom.cuh (spectrum.py:184),
-and adjudicate_sketch is kernel KF (spectrum.py:adjudicate_sketch, :843,
-with the keep rule of trimmer.py:filter_keep_rets, :81).
+bloom_probe_bits is the plain twin of csrc/bloom.cuh (spectrum.py:184).
+adjudicate_sketch is kernel KF (spectrum.py:adjudicate_sketch, :843, with
+the keep rule of trimmer.py:filter_keep_rets, :81) and
+adjudicate_first_occurrence kernel KI (:217); adjudicate chooses between
+them as bfc_tpu does.  finalize_counts is kernel KK (:868) and
+cuckoo_build kernel KL (cuckoo_build_device, :543).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from .. import kernels
 from .kmer import canonical_hash, shard_and_keybody, srl
+from .spectrum_dense import as_i32
 
 _CUCKOO_GOLD = 0x9E3779B97F4A7C15
 _ALT_C1 = 0x9E3779B9
@@ -30,6 +35,7 @@ _ALT_C2 = 0x85EBCA6B
 _U64 = (1 << 64) - 1
 BLK_SHIFT = 9
 MAX_HASHES = 16  # csrc/bloom.cuh:BFC_MAX_HASHES
+ARRIVAL_LIMIT = 0xFFFFFFFF  # KF keeps ~arrival in u32; 0 marks "unset"
 
 
 class SpecTable(NamedTuple):
@@ -195,17 +201,17 @@ def bloom_probe_bits(ret, bf_shift: int, n_hashes: int):
     return (block << BLK_SHIFT).unsqueeze(-1) | out
 
 
-def adjudicate_sketch_plain(ret, arr, n, bf_shift: int, n_hashes: int):
-    """Plain version of KF, as a sort (spectrum.py:
-    adjudicate_first_occurrence, :217): the probes sorted by (bit,
-    arrival), each compared with its bit group's first arrival.  It needs
-    no 2^bf_shift array.  ret int64 [C]; arr int32 [C], the low 32 bits of
-    the first arrivals; n int32 [C] occurrences (saturated).  Returns
-    (fp, keep), bool [C]."""
+def adjudicate_first_occurrence_plain(ret, arr, bf_shift: int,
+                                      n_hashes: int):
+    """Plain version of KI, the sort formulation of spectrum.py:
+    adjudicate_first_occurrence (:217): the C * n_hashes probes sorted by
+    (bit, arrival), each compared with its bit group's first arrival.  It
+    needs no 2^bf_shift array.  ret, arr int64 [C] (arrivals below 2^63);
+    returns fp, bool [C]."""
     C = ret.shape[0]
     H = n_hashes
     bits = bloom_probe_bits(ret, bf_shift, n_hashes).reshape(-1)
-    a = (arr.to(torch.int64) & 0xFFFFFFFF).repeat_interleave(H)
+    a = arr.repeat_interleave(H)
     order = torch.sort(a, stable=True).indices
     order = order[torch.sort(bits[order], stable=True).indices]
     sb, sa = bits[order], a[order]
@@ -215,7 +221,16 @@ def adjudicate_sketch_plain(ret, arr, n, bf_shift: int, n_hashes: int):
     start = torch.cummax(torch.where(first, idx, 0), dim=0).values
     hit = torch.empty_like(first)
     hit[order] = sa[start] < sa
-    fp = hit.view(C, H).all(dim=1)
+    return hit.view(C, H).all(dim=1)
+
+
+def adjudicate_sketch_plain(ret, arr, n, bf_shift: int, n_hashes: int):
+    """Plain version of KF: KI's plain version on the low 32 bits of the
+    arrivals.  ret int64 [C]; arr int32 [C], the low 32 bits of the first
+    arrivals; n int32 [C] occurrences (saturated).  Returns (fp, keep),
+    bool [C]."""
+    fp = adjudicate_first_occurrence_plain(
+        ret, arr.to(torch.int64) & 0xFFFFFFFF, bf_shift, n_hashes)
     keep = n.to(torch.int64) - 1 + fp.to(torch.int64) >= 1
     return fp, keep
 
@@ -247,8 +262,8 @@ def adjudicate_sketch(ret, arr, n, bf_shift: int, n_hashes: int):
     if need > free:
         raise RuntimeError(
             f"the Bloom adjudicate at -b{bf_shift} needs {need} bytes of "
-            f"device scratch, {free} free: the sort adjudicate on the card "
-            "is ROADMAP Queue 2 (K12b)")
+            f"device scratch, {free} free; adjudicate_first_occurrence (KI) "
+            "gives the same verdicts without it")
     dense = torch.empty((1 << bf_shift,), dtype=torch.int32, device=dev)
     fp = torch.empty((C,), dtype=torch.bool, device=dev)
     keep = torch.empty((C,), dtype=torch.bool, device=dev)
@@ -256,3 +271,193 @@ def adjudicate_sketch(ret, arr, n, bf_shift: int, n_hashes: int):
                       n.data_ptr(), bf_shift, n_hashes, dense.data_ptr(),
                       fp.data_ptr(), keep.data_ptr())
     return fp, keep
+
+
+def block_order(ret, arr, bf_shift: int):
+    """KI's input order: perm sorts the rows by (Bloom block, arrival),
+    stable; block j of the sorted rows is perm[starts[j]:starts[j + 1]]
+    (starts int64, its last entry the row count)."""
+    C = ret.shape[0]
+    block = ret & ((1 << (bf_shift - BLK_SHIFT)) - 1)
+    perm = torch.sort(arr, stable=True).indices
+    perm = perm[torch.sort(block[perm], stable=True).indices]
+    sb = block[perm]
+    del block
+    head = torch.ones((C,), dtype=torch.bool, device=ret.device)
+    head[1:] = sb[1:] != sb[:-1]
+    del sb
+    starts = torch.cat([torch.nonzero(head).flatten(),
+                        torch.full((1,), C, dtype=torch.int64,
+                                   device=ret.device)])
+    return perm, starts
+
+
+def adjudicate_first_occurrence(ret, arr, bf_shift: int, n_hashes: int):
+    """Exact first-occurrence verdicts at any arrival width (kernel KI):
+    fp[i], the first occurrence of row i found all its Bloom bits set by
+    an earlier first arrival.  ret, arr int64 [C], arrivals below 2^63.
+
+    The rows are sorted by (Bloom block, arrival) with two stable
+    torch.sort passes, the block boundaries found with torch.nonzero, and
+    KI replays each block in arrival order over its 512 bits.  On the card
+    the sorts hold ~64 bytes a row; a card without them free raises."""
+    C = ret.shape[0]
+    dev = ret.device
+    kernels.check(ret, "ret", torch.int64, (C,), dev)
+    kernels.check(arr, "arr", torch.int64, (C,), dev)
+    check_n_hashes(n_hashes)
+    if dev.type == "cpu":
+        return adjudicate_first_occurrence_plain(ret, arr, bf_shift, n_hashes)
+    need = 64 * C
+    free = kernels.device_free_bytes(dev)
+    if need > free:
+        raise RuntimeError(
+            f"the first-occurrence verdict of {C} rows needs {need} device "
+            f"bytes, {free} free")
+    perm, starts = block_order(ret, arr, bf_shift)
+    fp = torch.empty((C,), dtype=torch.bool, device=dev)
+    kernels.KI.launch("ki_launch", starts.shape[0] - 1, starts.data_ptr(),
+                      perm.data_ptr(), ret.data_ptr(), arr.data_ptr(),
+                      bf_shift, n_hashes, fp.data_ptr())
+    return fp
+
+
+class Verdict(NamedTuple):
+    fp: torch.Tensor    # bool [C]
+    keep: torch.Tensor  # bool [C], n - 1 + fp >= 1
+    by: str             # the kernel that gave fp: "KF" or "KI"
+
+
+def adjudicate(ret, arr, n, bf_shift: int, n_hashes: int) -> Verdict:
+    """First-occurrence verdicts and the keep set n - 1 + fp >= 1, as both
+    of bfc_tpu's device verdicts choose (counter.py:756-765, trimmer.py:
+    126-130): KF while every first arrival is below 2^32 - 1, KI above.
+    ret, arr, n int64 [C]."""
+    C = ret.shape[0]
+    kernels.check(n, "n", torch.int64, (C,), ret.device)
+    arr_max = int(arr.max()) if C else 0
+    if arr_max < ARRIVAL_LIMIT:
+        fp, keep = adjudicate_sketch(
+            ret, as_i32(arr), n.clamp(max=0x7FFFFFFF).to(torch.int32),
+            bf_shift, n_hashes)
+        return Verdict(fp, keep, "KF")
+    fp = adjudicate_first_occurrence(ret, arr, bf_shift, n_hashes)
+    return Verdict(fp, n - 1 + fp.to(torch.int64) >= 1, "KI")
+
+
+# ---------------------------------------------------------------------------
+# The device finalize: payloads and histograms (KK), the cuckoo build (KL)
+# ---------------------------------------------------------------------------
+
+def finalize_counts_plain(n, n_high, first_high, fp):
+    """Plain version of KK."""
+    f = fp.to(torch.int64)
+    m = n - 1 + f
+    high = (n_high - (1 - f) * first_high.to(torch.int64)).clamp(max=63)
+    keep = m >= 1
+    payload = torch.where(keep, m.clamp(max=255) | (high << 8), 0)
+    hist = torch.bincount(payload[keep] & 255, minlength=256)
+    hist_high = torch.bincount(payload[keep] >> 8, minlength=64)
+    return payload.to(torch.int32), keep, hist, hist_high
+
+
+def finalize_counts(n, n_high, first_high, fp):
+    """Table payloads of a folded run (kernel KK; spectrum.py:
+    finalize_counts_fp, :868): (payload int32 [C], keep bool [C], hist
+    int64 [256], hist_high int64 [64]).  m = n - 1 + fp, high = n_high -
+    (1 - fp) * first_high; a row is kept when m >= 1, with payload
+    min(m, 255) | min(high, 63) << 8 (0 when dropped).  hist counts the
+    kept rows by count (bin 0 stays 0), hist_high by high.  n, n_high
+    int64 [C]; first_high uint8 [C]; fp bool [C]."""
+    C = n.shape[0]
+    dev = n.device
+    kernels.check(n, "n", torch.int64, (C,), dev)
+    kernels.check(n_high, "n_high", torch.int64, (C,), dev)
+    kernels.check(first_high, "first_high", torch.uint8, (C,), dev)
+    kernels.check(fp, "fp", torch.bool, (C,), dev)
+    if dev.type == "cpu":
+        return finalize_counts_plain(n, n_high, first_high, fp)
+    payload = torch.empty((C,), dtype=torch.int32, device=dev)
+    keep = torch.empty((C,), dtype=torch.bool, device=dev)
+    hist = torch.zeros((256,), dtype=torch.int64, device=dev)
+    hist_high = torch.zeros((64,), dtype=torch.int64, device=dev)
+    kernels.KK.launch("kk_launch", C, n.data_ptr(), n_high.data_ptr(),
+                      first_high.data_ptr(), fp.data_ptr(),
+                      payload.data_ptr(), keep.data_ptr(), hist.data_ptr(),
+                      hist_high.data_ptr())
+    return payload, keep, hist, hist_high
+
+
+_I64_MIN = -(1 << 63)
+
+
+def cuckoo_build_plain(shard, keybody, payload, k: int, l_pre: int,
+                       kb_bits: int, c_bits: int, max_rounds: int = 256):
+    """Plain version of KL: cuckoo_build_device's synchronous rounds
+    (spectrum.py:543-605).  Every unplaced key claims its current slot; a
+    scatter-max of a per-round priority picks each slot's winner; losers
+    and evicted keys turn to their other slot.  u64 priorities ride in
+    int64 with the sign bit flipped, so the signed amax orders them as
+    unsigned.  Rows with payload 0 are skipped."""
+    S = 1 << c_bits
+    n = shard.shape[0]
+    dev = shard.device
+    s1 = srl(_posk64(shard, keybody, l_pre, kb_bits), 64 - c_bits)
+    qlow = _id_low(shard, keybody, l_pre, kb_bits, c_bits)
+    s2 = s1 ^ cuckoo_alt(qlow, c_bits)
+    payload = payload.to(torch.int64)
+    valid = payload != 0
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    idb = max(n.bit_length(), 1)
+    occupant = torch.full((S,), -1, dtype=torch.int64, device=dev)
+    cur = s1.clone()
+    pref = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for rnd in range(max_rounds):
+        pend = valid & (occupant[cur] != ids)
+        if not bool(pend.any()):
+            break
+        prio = (ids + _to_i64(_CUCKOO_GOLD)) * _to_i64(
+            (rnd * 2 + 0xBF58476D1CE4E5B9) & _U64)
+        wval = (srl(prio, idb + 1) << (idb + 1)) | (ids + 1)
+        claim = torch.full((S,), _I64_MIN, dtype=torch.int64, device=dev)
+        claim.scatter_reduce_(0, cur[pend], (wval ^ _I64_MIN)[pend], "amax")
+        won = ((claim ^ _I64_MIN) & ((1 << (idb + 1)) - 1)) - 1
+        occupant = torch.where(claim != _I64_MIN, won, occupant)
+        pend2 = valid & (occupant[cur] != ids)
+        pref = pref ^ pend2.to(torch.int64)
+        cur = torch.where(pend2, torch.where(pref == 0, s1, s2), cur)
+    placed = valid & (occupant[cur] == ids)
+    ok = not bool((valid & ~placed).any())
+    table = torch.zeros((S,), dtype=torch.int64, device=dev)
+    table[cur[placed]] = ((qlow << 15) | (pref << 14) | payload)[placed]
+    return table, ok
+
+
+def cuckoo_build(shard, keybody, payload, k: int, l_pre: int, kb_bits: int,
+                 c_bits: int):
+    """The cuckoo table of the kept entries (kernel KL): (int64
+    [1 << c_bits] of u64 entries, as cuckoo_probe reads them; ok).  ok is
+    False when a key could not be placed; build again one bit larger.
+    shard, keybody int64 [n]; payload int32 [n], non-zero.  The layout
+    is not deterministic on the card; lookups are."""
+    n = shard.shape[0]
+    dev = shard.device
+    kernels.check(shard, "shard", torch.int64, (n,), dev)
+    kernels.check(keybody, "keybody", torch.int64, (n,), dev)
+    kernels.check(payload, "payload", torch.int32, (n,), dev)
+    if l_pre + kb_bits - c_bits > 49:
+        raise ValueError(f"c_bits {c_bits}: qlow does not fit the entry")
+    if dev.type == "cpu":
+        return cuckoo_build_plain(shard, keybody, payload, k, l_pre, kb_bits,
+                                  c_bits)
+    need = 8 << c_bits
+    free = kernels.device_free_bytes(dev)
+    if need > free:
+        raise RuntimeError(f"a cuckoo table of 2^{c_bits} entries needs "
+                           f"{need} device bytes, {free} free")
+    table = torch.zeros((1 << c_bits,), dtype=torch.int64, device=dev)
+    fail = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kernels.KL.launch("kl_launch", n, shard.data_ptr(), keybody.data_ptr(),
+                      payload.data_ptr(), l_pre, kb_bits, c_bits,
+                      table.data_ptr(), fail.data_ptr())
+    return table, int(fail) == 0

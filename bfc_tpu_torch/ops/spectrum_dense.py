@@ -20,6 +20,8 @@ group heads, folds each group into its head and compacts the heads.
 Kernel KE packs a run for its pull to the host (spectrum_dense.py:
 pack_pull, :233): arrival, counts and first_high fold into two 32-bit
 planes, and packed_run_to_host_agg (:258) unpacks them into a HostAgg.
+With the device finalize the run never crosses: kernel KJ fills in ret
+where the run does not carry it (run_to_aggregate, :312).
 """
 
 from __future__ import annotations
@@ -237,6 +239,55 @@ def run_to_host_agg(shard, keybody, arr, n, n_high, first_high, ret, k: int,
         first_arr=arr.view(np.uint64),
         first_high=first_high.astype(np.uint32),
     )
+
+
+def derive_ret_plain(shard, keybody, k: int, l_pre: int):
+    """Plain version of KJ (derive_ret_np on int64 bit patterns)."""
+    mask = (1 << k) - 1
+    if k <= 32:
+        z = (shard << (2 * k - l_pre)) | keybody
+        h0 = kops.srl(z, k)
+        h1 = z & mask
+    else:
+        h0 = (shard << (k - l_pre)) | (keybody >> k)
+        h1 = keybody & mask
+    w0 = (h0 - h1) & mask
+    return ((w0 ^ h1) << k) | h0
+
+
+def derive_ret(shard, keybody, k: int, l_pre: int):
+    """The Bloom-addressing hash of rows whose run does not carry it (kernel
+    KJ; spectrum_dense.py:derive_ret_device, :293): int64 [C] from the
+    int64 identity columns.  Only where ret_derivable(k, l_pre)."""
+    C = shard.shape[0]
+    dev = shard.device
+    kernels.check(shard, "shard", torch.int64, (C,), dev)
+    kernels.check(keybody, "keybody", torch.int64, (C,), dev)
+    if not ret_derivable(k, l_pre):
+        raise ValueError(f"ret is not derivable at k {k}, l_pre {l_pre}")
+    if dev.type == "cpu":
+        return derive_ret_plain(shard, keybody, k, l_pre)
+    ret = torch.empty((C,), dtype=torch.int64, device=dev)
+    kernels.KJ.launch("kj_launch", C, shard.data_ptr(), keybody.data_ptr(),
+                      k, l_pre, ret.data_ptr())
+    return ret
+
+
+def run_to_aggregate(run: Run, k: int, l_pre: int) -> Run:
+    """The folded run as the device finalize takes it, with ret filled in
+    (KJ) where the run does not carry it (spectrum_dense.py:
+    run_to_aggregate, :312).  The run stays on its device."""
+    if run.ret is not None:
+        return run
+    # Run's own __len__ (rows) stops NamedTuple._replace from working
+    return Run(run.shard, run.keybody, run.arr, run.n, run.n_high,
+               run.first_high, derive_ret(run.shard, run.keybody, k, l_pre))
+
+
+def empty_run(device) -> Run:
+    z = torch.zeros((0,), dtype=torch.int64, device=device)
+    return Run(z, z, z, z, z, torch.zeros((0,), dtype=torch.uint8,
+                                          device=device), z)
 
 
 def derive_ret_np(shard: np.ndarray, keybody: np.ndarray, k: int,

@@ -1,6 +1,7 @@
-"""Smoke run of bfc_tpu_torch on one CUDA card: builds the eight kernels,
+"""Smoke run of bfc_tpu_torch on one CUDA card: builds the twelve kernels,
 drives the count + correct main path and the trim path (-1) at E. coli
-scale, and holds every kernel against its plain PyTorch version.
+scale, with the host finalize and with the device finalize, and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -42,6 +43,25 @@ Phases (any failure raises; nothing is caught):
    the aggregate's kept rows; KH on an 8,192-read trim batch.  Then the
    card's -1 -k51 count of the first 80,000 reads must give the plain
    CPU run's aggregate, keep set and Bloom bits.
+7. The main path with the device finalize (device_finalize=True, as
+   BFC_TPU_DEVICE_FINALIZE=1 selects it) on the same reads, counts zeroed
+   just before and read just after: KA, KB, KJ, KF, KK, KL, KC and KD must
+   have launched and KE must not.  The output must hash as phase 2's, the
+   card-built table must give the host-built table's payload for every
+   kept entry and its answer (-1 but for chance hits) for 1,000,000 seeded
+   other keys, and the entries and histograms must be equal.
+8. The trim path with the device finalize: KE must not launch, and the
+   output must hash as phase 5's.  Then the same with arrivals numbered
+   from 2^33 (AggBuilder.arrival_base), where the verdict is KI: KI must
+   launch and KF not, and the output must hash as phase 5's; and the main
+   path's count with arrivals from 2^33 and the device finalize, where KI
+   must launch and the spectrum equal phase 2's.
+9. The finalize kernels against their plain versions and the host: KI on
+   the main fold (49.8M rows, -b30) and the trim fold (63.1M rows, -b33)
+   against KF's verdicts, with arrivals from 0 and from 2^33, against its
+   plain version on the trim fold and against the host's exact replay
+   there; KJ and KK on the main fold; KL on the main fold's kept entries,
+   compared by lookups with its plain version's table.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times are CUDA-event means over repeated launches after a warm-up.
@@ -54,6 +74,8 @@ repository, the script exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import shutil
 import subprocess
@@ -100,6 +122,8 @@ OPS_KB_ROW = 2 * 8
 OPS_BLOOM = 2 * (20 + 4 * 4)
 BLOCK = 2 * SECTOR
 OPS_KE_ROW = 2 * 8
+OPS_KJ_ROW = 2 * 15   # the identity inverted and ret rebuilt
+OPS_KK_ROW = 2 * 10   # the payload rule and two bin increments
 
 COUNT_B, COUNT_L = 16384, 128   # run_device's counting batch (padded to 32)
 CORR_B = 8192                   # run_device's correction batch
@@ -108,6 +132,8 @@ SAMPLE_READS = 1000
 HEAD_READS = 80_000             # ~9 counting batches for the plain count
 TRIM_K = 51                     # README's trim command: -1 -k51 (-b33)
 TRIM_B, TRIM_L = 8192, 128      # Trimmer.trim_file's batch (L padded to 32)
+ABSENT_KEYS = 1_000_000         # seeded keys probed in both tables
+FAR = 1 << 33                   # arrivals from here take the KI verdict
 
 
 def fail(msg: str):
@@ -395,7 +421,7 @@ def check_head_count(fq: Path, opt, dev):
     return len(got.shard), ds_g.n_entries
 
 
-def drive(opt, fq: Path, out: Path):
+def drive(opt, fq: Path, out: Path, device_finalize: bool = False):
     """One run of run_device over fq into out, with every launch count
     zeroed just before and read just after.  Returns (report, launches,
     device memory peak in bytes)."""
@@ -403,9 +429,40 @@ def drive(opt, fq: Path, out: Path):
     torch.cuda.reset_peak_memory_stats()
     report = {}
     with open(out, "wb") as sink:
-        DP.run_device(opt, str(fq), sink=sink, device="cuda", report=report)
+        DP.run_device(opt, str(fq), sink=sink, device="cuda", report=report,
+                      device_finalize=device_finalize)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     return report, launches, torch.cuda.max_memory_allocated()
+
+
+def file_hash(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def arrivals_from(base: int):
+    """Every AggBuilder numbers its stream's slots from base."""
+    init = C.AggBuilder.__init__
+
+    def shifted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.arrival_base = base
+
+    C.AggBuilder.__init__ = shifted
+    try:
+        yield
+    finally:
+        C.AggBuilder.__init__ = init
+
+
+def need_silent(launches, names, path: str) -> None:
+    for name in names:
+        if launches[name] != 0:
+            fail(f"kernel {name} launched {launches[name]} times on {path}")
 
 
 def need_launched(launches, names, path: str) -> None:
@@ -599,6 +656,158 @@ def check_trim_head(fq: Path, opt, dev):
     return got["n_aggregated"], got["n_kept"], TT.popcount(bw.words)
 
 
+def same_spectrum(got, want) -> bool:
+    return (got.n_entries == want.n_entries and got.mode == want.mode
+            and np.array_equal(got.hist, want.hist)
+            and np.array_equal(got.hist_high, want.hist_high)
+            and all(np.array_equal(a, b) for a, b in
+                    zip(got.compact_entries(), want.compact_entries())))
+
+
+def lookup(t, shard, keybody):
+    """Payloads (-1 absent) of int64 (shard, keybody) queries on the card,
+    in chunks."""
+    step = 1 << 24
+    return torch.cat([spec.cuckoo_lookup_plain(t, shard[a:a + step],
+                                               keybody[a:a + step])
+                      for a in range(0, shard.shape[0], step)])
+
+
+def check_device_table(dds, hds, dev, seed):
+    """The card-built spectrum against the host-built one: entries,
+    histograms and mode, then both tables probed with every kept entry and
+    ABSENT_KEYS seeded other keys.  Returns (entries, absent keys)."""
+    if not same_spectrum(dds, hds):
+        fail("the device finalize's entries or histograms differ from the "
+             "host finalize's")
+    shard, keybody, payload = hds.compact_entries()
+    s = torch.from_numpy(shard.astype(np.int64)).to(dev)
+    kb = torch.from_numpy(keybody.view(np.int64)).to(dev)
+    got = lookup(dds.table, s, kb)
+    if not torch.equal(got, torch.from_numpy(payload.astype(np.int64)).to(dev)):
+        fail("the card-built table misses kept entries")
+    rng = np.random.default_rng(seed + 3)
+    t = hds.table
+    qs = torch.from_numpy(rng.integers(0, 1 << t.l_pre, ABSENT_KEYS)).to(dev)
+    qk = torch.from_numpy(rng.integers(0, 1 << t.kb_bits, ABSENT_KEYS)).to(dev)
+    want = lookup(t, qs, qk)
+    if not torch.equal(lookup(dds.table, qs, qk), want):
+        fail("the card-built and host-built tables answer other keys "
+             "differently")
+    return len(shard), int((want == -1).sum())
+
+
+def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
+    """KI, KJ, KK and KL against their plain versions (and KI against KF
+    and the host replay) at the folds' shapes.  Returns {name: result}."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    H = opt.n_hashes
+    res = {}
+
+    # KJ: the main fold's ret, which the run does not carry at k = 23
+    rows = len(main_fold)
+    s, kb = main_fold.shard, main_fold.keybody
+    ret = sdn.derive_ret(s, kb, k, l_pre)
+    r = dict(zip(("max_abs_err", "mismatches"),
+                 compare((ret,), (sdn.derive_ret_plain(s, kb, k, l_pre),))))
+    r["ms"] = cuda_ms(lambda: sdn.derive_ret(s, kb, k, l_pre), 10)
+    r["plain_ms"] = cuda_ms(lambda: sdn.derive_ret_plain(s, kb, k, l_pre), 3)
+    r["bound"] = bound(rows * 24, rows * OPS_KJ_ROW)
+    r["rows"] = rows
+    res["derive_ret"] = r
+
+    # KI on both folds against KF, from 0 and from 2^33
+    ki = {"mismatches": 0, "max_abs_err": 0.0}
+    for fold, o, r_fold in ((main_fold, opt, ret), (trim_fold, topt, None)):
+        b = o.bf_shift
+        ret_f = fold.ret if r_fold is None else r_fold
+        n32 = fold.n.clamp(max=0x7FFFFFFF).to(torch.int32)
+        kf, _ = spec.adjudicate_sketch(ret_f, sdn.as_i32(fold.arr), n32, b, H)
+        torch.cuda.empty_cache()
+        for shift in (0, FAR):
+            got = spec.adjudicate_first_occurrence(ret_f, fold.arr + shift, b,
+                                                   H)
+            err, n_diff = compare((got,), (kf,))
+            ki["mismatches"] += n_diff
+            ki["max_abs_err"] = max(ki["max_abs_err"], err)
+        ki[f"fp_b{b}"] = int(kf.sum())
+        ki[f"ms_b{b}"] = cuda_ms(lambda: spec.adjudicate_first_occurrence(
+            ret_f, fold.arr, b, H), 3)
+        ki[f"rows_b{b}"] = len(fold)
+        del kf, got
+    # the trim fold: KI's plain version and the host's exact replay
+    b = topt.bf_shift
+    tr, ta = trim_fold.ret, trim_fold.arr
+    got = spec.adjudicate_first_occurrence(tr, ta, b, H)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = spec.adjudicate_first_occurrence_plain(tr, ta, b, H)
+    torch.cuda.synchronize()
+    ki["plain_ms"] = (time.time() - t0) * 1e3
+    err, n_diff = compare((got,), (want,))
+    ki["mismatches"] += n_diff
+    ki["max_abs_err"] = max(ki["max_abs_err"], err)
+    del want
+    torch.cuda.empty_cache()
+    replay = sph.adjudicate_replay_np(
+        tr.cpu().numpy().view(np.uint64), ta.cpu().numpy().view(np.uint64),
+        np.ones(len(trim_fold), bool), b, H)
+    if replay is None:
+        fail("the native replay library did not load")
+    ki["replay_mismatches"] = int((got.cpu().numpy() != replay).sum())
+    ki["mismatches"] += ki["replay_mismatches"]
+    trows = len(trim_fold)
+    ki["ms"] = ki[f"ms_b{b}"]
+    ki["bound"] = bound(trows * (8 + 8 + 1), trows * OPS_BLOOM)
+    res["first_occurrence"] = ki
+    del got
+
+    # KK on the main fold with KI's verdicts
+    fp = spec.adjudicate_first_occurrence(ret, main_fold.arr, opt.bf_shift, H)
+    cols = (main_fold.n, main_fold.n_high, main_fold.first_high, fp)
+    kk = spec.finalize_counts(*cols)
+    r = dict(zip(("max_abs_err", "mismatches"),
+                 compare(kk, spec.finalize_counts_plain(*cols))))
+    r["ms"] = cuda_ms(lambda: spec.finalize_counts(*cols), 10)
+    r["plain_ms"] = cuda_ms(lambda: spec.finalize_counts_plain(*cols), 3)
+    r["bound"] = bound(rows * 23, rows * OPS_KK_ROW)
+    r["rows"] = rows
+    res["finalize_counts"] = r
+
+    # KL on the kept entries, compared by lookups of every fold row
+    payload, keep = kk[:2]
+    ks, kkb, kp = s[keep], kb[keep], payload[keep]
+    n = ks.shape[0]
+    kb_bits = kops.keybody_bits(k, l_pre)
+    c_bits = C.table_c_bits(n, k, l_pre, opt.predicted_c_bits())
+    table, ok = spec.cuckoo_build(ks, kkb, kp, k, l_pre, kb_bits, c_bits)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain, pok = spec.cuckoo_build_plain(ks, kkb, kp, k, l_pre, kb_bits,
+                                         c_bits)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    want = torch.where(keep, payload, -1).to(torch.int64)
+    r = {"max_abs_err": 0.0, "mismatches": 0}
+    for tab in (table, plain):
+        got = lookup(spec.SpecTable(tab, k, l_pre, kb_bits, c_bits), s, kb)
+        err, n_diff = compare((got,), (want,))
+        r["mismatches"] += n_diff
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    if not (ok and pok):
+        fail(f"cuckoo placement failed at c_bits {c_bits} (KL {ok}, plain "
+             f"{pok})")
+    r["ms"] = cuda_ms(lambda: spec.cuckoo_build(ks, kkb, kp, k, l_pre,
+                                                kb_bits, c_bits), 5)
+    r["plain_ms"] = plain_ms
+    r["bound"] = bound(n * (8 + 8 + 4 + SECTOR) + (8 << c_bits),
+                       n * OPS_PROBE)
+    r["rows"], r["c_bits"] = n, c_bits
+    res["cuckoo_build"] = r
+    return res
+
+
 # --------------------------------------------------------------------------
 
 SOURCES = {
@@ -618,11 +827,24 @@ SOURCES = {
                     "bfc_tpu/models/trimmer.py:49"),
     "max_streak": ("KH", "bfc_tpu_torch/csrc/max_streak.cu",
                    "bfc_tpu/models/trimmer.py:136"),
+    "first_occurrence": ("KI", "bfc_tpu_torch/csrc/first_occurrence.cu",
+                         "bfc_tpu/ops/spectrum.py:217"),
+    "derive_ret": ("KJ", "bfc_tpu_torch/csrc/derive_ret.cu",
+                   "bfc_tpu/ops/spectrum_dense.py:312"),
+    "finalize_counts": ("KK", "bfc_tpu_torch/csrc/finalize_counts.cu",
+                        "bfc_tpu/ops/spectrum.py:868"),
+    "cuckoo_build": ("KL", "bfc_tpu_torch/csrc/cuckoo_build.cu",
+                     "bfc_tpu/ops/spectrum.py:543"),
 }
 MAIN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "kcov_island",
                 "ec1_search")
 TRIM_KERNELS = ("kmer_stream", "run_combine", "pack_pull",
                 "bloom_adjudicate", "bloom_build", "max_streak")
+MAIN_DEVICE_KERNELS = ("kmer_stream", "run_combine", "derive_ret",
+                       "bloom_adjudicate", "finalize_counts", "cuckoo_build",
+                       "kcov_island", "ec1_search")
+TRIM_DEVICE_KERNELS = ("kmer_stream", "run_combine", "bloom_adjudicate",
+                       "bloom_build", "max_streak")
 
 
 def main() -> int:
@@ -680,6 +902,7 @@ def main() -> int:
         print(f"output: {n_reads} records; {SAMPLE_READS} sampled records "
               f"byte-identical to refmodel.ec1 ({n_corr} of them corrected)",
               flush=True)
+        main_hash = file_hash(out_fq)
         out_fq.unlink()
 
         # ---- the counting against plain versions
@@ -695,6 +918,7 @@ def main() -> int:
         w = res["pack_pull"]["pull_s"]
         print(f"pull of the {res['pack_pull']['rows']}-row fold: unpacked "
               f"{w['unpacked']} s, packed by KE {w['packed']} s", flush=True)
+        main_fold = merged.folded
         del merged
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -712,7 +936,7 @@ def main() -> int:
         write_fastq(small, bases[:200_000], quals[:200_000])
         opt33, ds33 = small_spectrum(small, 33, dev)
         res33 = check_kernels(opt33, ds33, bases, quals, dev, timed=False)
-        del ds, ds33, report
+        del ds33, report
         torch.cuda.empty_cache()
 
         # ---- the trim path, as `python -m bfc_tpu_torch -1 -k51 reads.fq`
@@ -745,6 +969,7 @@ def main() -> int:
         print(f"trim output: {n_out} records; {SAMPLE_READS} sampled reads "
               f"trimmed as refmodel.trim_read trims them ({n_sampled_kept} "
               "kept, the rest absent)", flush=True)
+        trim_hash = file_hash(trim_fq)
         trim_fq.unlink()
 
         # ---- the trim kernels against their plain versions and the host
@@ -764,31 +989,135 @@ def main() -> int:
               f"{HEAD_READS} reads equals the plain run on the CPU ({n_agg} "
               f"k-mers aggregated, {n_kept} kept, {n_bits} Bloom bits set); "
               f"{time.time() - t0:.1f} s", flush=True)
+
+        # ---- the main path with the device finalize
+        dout = tmp / "corrected_device.fq"
+        drep, dlaunches, dpeak = drive(opt, fq, dout, device_finalize=True)
+        cs, es = drep["count_s"], drep["correct_s"]
+        print(f"main path, device finalize (verdict {drep['verdict']}): "
+              f"counting {cs:.2f} s, correction {es:.2f} s, end to end "
+              f"{n_reads / (cs + es):.0f} reads/s; {drep['n_aggregated']} "
+              f"distinct k-mers aggregated, {drep['n_kept']} kept, c_bits "
+              f"{drep['spectrum'].c_bits}; device memory peak "
+              f"{dpeak / 2**30:.2f} GiB; launches {dlaunches}", flush=True)
+        need_launched(dlaunches, MAIN_DEVICE_KERNELS,
+                      "the main path with the device finalize")
+        need_silent(dlaunches, ("pack_pull", "first_occurrence"),
+                    "the main path with the device finalize")
+        if (drep["finalize"], drep["verdict"]) != ("device", "KF"):
+            fail(f"main path: {drep['finalize']} finalize, verdict "
+                 f"{drep['verdict']}")
+        if file_hash(dout) != main_hash:
+            fail("the device finalize's output differs from the host "
+                 "finalize's")
+        dout.unlink()
+        t0 = time.time()
+        n_ent, n_abs = check_device_table(drep["spectrum"], ds, dev, args.seed)
+        print(f"device finalize: output byte-identical to the host "
+              f"finalize's; the card-built table gives the host table's "
+              f"payload for all {n_ent} kept entries and its answer for "
+              f"{ABSENT_KEYS} other keys ({n_abs} absent); same histograms; "
+              f"{time.time() - t0:.1f} s", flush=True)
+        del drep
+        torch.cuda.empty_cache()
+
+        # ---- the trim path with the device finalize, then from 2^33
+        dtrim = tmp / "trimmed_device.fq"
+        dtrep, dtlaunches, dtpeak = drive(topt, fq, dtrim,
+                                          device_finalize=True)
+        print(f"trim path, device finalize (verdict {dtrep['verdict']}): "
+              f"counting {dtrep['count_s']:.2f} s, trim "
+              f"{dtrep['trim_s']:.2f} s; {dtrep['n_kept']} k-mers kept; "
+              f"device memory peak {dtpeak / 2**30:.2f} GiB; launches "
+              f"{dtlaunches}", flush=True)
+        need_launched(dtlaunches, TRIM_DEVICE_KERNELS,
+                      "the trim path with the device finalize")
+        need_silent(dtlaunches, ("pack_pull", "derive_ret"),
+                    "the trim path with the device finalize")
+        if file_hash(dtrim) != trim_hash:
+            fail("the trim path's output differs with the device finalize")
+        trim_fold = dtrep["aggregate"]
+        del dtrep
+        torch.cuda.empty_cache()
+        with arrivals_from(FAR):
+            ftrep, ftlaunches, _ = drive(topt, fq, dtrim,
+                                         device_finalize=True)
+            print(f"trim path, device finalize, arrivals from 2^33 (verdict "
+                  f"{ftrep['verdict']}): counting {ftrep['count_s']:.2f} s, "
+                  f"trim {ftrep['trim_s']:.2f} s; launches {ftlaunches}",
+                  flush=True)
+            need_launched(ftlaunches, ("first_occurrence",),
+                          "the trim path from 2^33")
+            need_silent(ftlaunches, ("bloom_adjudicate", "pack_pull"),
+                        "the trim path from 2^33")
+            if file_hash(dtrim) != trim_hash:
+                fail("the trim path's output differs with arrivals from 2^33")
+            del ftrep
+            torch.cuda.empty_cache()
+            kernels.reset_launches()
+            t0 = time.time()
+            fds = C.count_file_device(str(fq), opt, dev, COUNT_B,
+                                      device_finalize=True)
+            torch.cuda.synchronize()
+            fcount_s = time.time() - t0
+            fclaunches = {k.name: k.launches
+                          for k in kernels.KERNELS.values()}
+        need_launched(fclaunches, ("first_occurrence", "derive_ret",
+                                   "finalize_counts", "cuckoo_build"),
+                      "the main count from 2^33")
+        need_silent(fclaunches, ("bloom_adjudicate", "pack_pull"),
+                    "the main count from 2^33")
+        if fds.verdict != "KI" or not same_spectrum(fds, ds):
+            fail("the main count from 2^33 gives another spectrum")
+        print(f"trim output from 2^33 byte-identical; main count from 2^33 "
+              f"(verdict KI) {fcount_s:.2f} s, spectrum equal to the host "
+              f"finalize's; launches {fclaunches}", flush=True)
+        del fds, ds
+        dtrim.unlink()
+        torch.cuda.empty_cache()
+
+        # ---- the finalize kernels against their plain versions
+        t0 = time.time()
+        res.update(check_finalize_kernels(main_fold, trim_fold, opt, topt,
+                                          dev))
+        r = res["first_occurrence"]
+        print(f"KI verdicts: equal to KF's on the {r['rows_b30']}-row main "
+              f"fold ({r['fp_b30']} Bloom hits) and the {r['rows_b33']}-row "
+              f"trim fold ({r['fp_b33']}), arrivals from 0 and from 2^33; "
+              f"equal to its plain version and the host replay on the trim "
+              f"fold; {time.time() - t0:.1f} s", flush=True)
+        del main_fold, trim_fold
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    paths = {"main": launches, "trim": tlaunches,
+             "main_device_finalize": dlaunches,
+             "trim_device_finalize": dtlaunches,
+             "trim_device_finalize_from_2^33": ftlaunches,
+             "main_count_device_finalize_from_2^33": fclaunches}
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
         r = res[name]
         errs = [r] + ([res33[name]] if name in res33 else [])
         mism = sum(x["mismatches"] for x in errs)
+        by_path = {p: ls[name] for p, ls in paths.items()}
         print(f"{tag} {name}: mismatches {mism}; {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]}); launches main {launches[name]}, trim "
-              f"{tlaunches[name]}", flush=True)
+              f"({r['bound'][1]}); launches {by_path}", flush=True)
         if mism != 0:
             fail(f"kernel {name} disagrees with its plain version")
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
-               "launches": launches[name] + tlaunches[name],
-               "launches_by_path": {"main": launches[name],
-                                    "trim": tlaunches[name]},
+               "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
                "max_abs_err": max(x["max_abs_err"] for x in errs),
                "mismatches": mism,
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                "library_ms": None}
-        for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches"):
+        for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches",
+                      "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "run_combine":

@@ -26,7 +26,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _port_cli(*args) -> bytes:
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread: the plain versions' small ops lose to thread
+    # start-up beside the suite's other workers, and the bytes do not change
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", "bfc_tpu_torch", "--cpu", *args],
                        cwd=ROOT, env=env, capture_output=True, check=True)
     return r.stdout

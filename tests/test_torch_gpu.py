@@ -1,5 +1,6 @@
-"""The eight CUDA kernels against their plain PyTorch versions on a card,
-and the trim path on the card against the same path on the CPU.
+"""The twelve CUDA kernels against their plain PyTorch versions on a card,
+and the trim path and the device finalize on the card against the same
+paths on the CPU.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from bfc_tpu_torch import kernels
 from bfc_tpu_torch.models import counter as TC
 from bfc_tpu_torch.models import device_pipeline as TDP
 from bfc_tpu_torch.models import trimmer as TT
@@ -156,3 +158,65 @@ def test_trim_path_matches_cpu(card, tmp_path, monkeypatch):
     got = TDP.run_device(opt, str(fq), device=card, report=rep)
     assert rep["verdict"] == "KF" and rep["reads_kept"] > 0
     assert got == TDP.run_device(opt, str(fq), device="cpu")
+
+
+@pytest.mark.parametrize("k", [21, 51])
+def test_ki_kj_kk_kl_match_plain(card, tmp_path, k):
+    """The device finalize's kernels on a folded run: KJ (ret derived at
+    k = 21, carried at 51), KI with arrivals from 0 and from 2^33 (equal
+    to KF's verdicts), KK, and KL compared by lookups."""
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    opt = Opts()
+    opt.k = k
+    opt.bf_shift = 24
+    l_pre, H = opt.effective_l_pre(), opt.n_hashes
+    agg = TC.AggBuilder(opt, card)
+    for bases, qok, lens, _ in TC.padded_batches(str(fq), opt, 2048):
+        agg.add(bases, qok, lens)
+    run = agg.fold()
+    ret = run.ret
+    if ret is None:
+        ret = sdn.derive_ret(run.shard, run.keybody, k, l_pre)
+        _eq((ret,), (sdn.derive_ret_plain(run.shard, run.keybody, k, l_pre),))
+    kf, _ = spec.adjudicate_sketch(ret, sdn.as_i32(run.arr),
+                                   run.n.to(torch.int32), 24, H)
+    for shift in (0, 1 << 33):
+        arr = run.arr + shift
+        fp = spec.adjudicate_first_occurrence(ret, arr, 24, H)
+        _eq((fp,), (spec.adjudicate_first_occurrence_plain(ret, arr, 24, H),))
+        _eq((fp,), (kf,))
+    kk = spec.finalize_counts(run.n, run.n_high, run.first_high, fp)
+    _eq(kk, spec.finalize_counts_plain(run.n, run.n_high, run.first_high, fp))
+    payload, keep = kk[:2]
+    shard, keybody, kept = run.shard[keep], run.keybody[keep], payload[keep]
+    kb_bits = kops.keybody_bits(k, l_pre)
+    c_bits = TC.table_c_bits(len(shard), k, l_pre)
+    table, ok = spec.cuckoo_build(shard, keybody, kept, k, l_pre, kb_bits,
+                                  c_bits)
+    assert ok
+    got = spec.cuckoo_lookup_plain(
+        spec.SpecTable(table, k, l_pre, kb_bits, c_bits), run.shard,
+        run.keybody)
+    _eq((got,), (torch.where(keep, payload, -1).to(torch.int64),))
+
+
+def test_device_finalize_matches_cpu(card, tmp_path):
+    """Correction (k = 23) and trim (-1 -k51) with the device finalize on
+    the card against the same runs on the CPU, and KE never launched."""
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    for k, trim in ((23, False), (51, True)):
+        opt = Opts()
+        opt.k = k
+        opt.bf_shift = 24
+        opt.filter_mode = trim
+        kernels.reset_launches()
+        rep = {}
+        got = TDP.run_device(opt, str(fq), device=card, report=rep,
+                             device_finalize=True)
+        assert rep["finalize"] == "device" and rep["verdict"] == "KF"
+        assert kernels.KE.launches == 0
+        assert kernels.KK.launches == (0 if trim else 1)
+        assert got == TDP.run_device(opt, str(fq), device="cpu",
+                                     device_finalize=True)

@@ -1,9 +1,9 @@
 """The CUDA kernels' per-read bodies, compiled for the CPU, against the
 plain PyTorch versions.
 
-csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH) or per-row (KB,
-KE, KF, KG) body
-as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
+csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH), per-row (KB,
+KE, KF, KG, KJ, KK), per-block (KI) or per-key (KL) body as
+__host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
 over the reads or rows that one CUDA thread would take.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
 kernels' logic runs on a machine without a card.  Inputs are seeded
@@ -56,9 +56,15 @@ def shim(tmp_path_factory):
     lib.kg_host.argtypes = [LL, P, P, I, I, P]
     lib.kh_host.argtypes = [P, P, I, I, I, P, I, I, P]
     lib.probe_bits_host.argtypes = [LL, P, I, I, P]
+    lib.ki_host.argtypes = [LL, P, P, P, P, I, I, P]
+    lib.kj_host.argtypes = [LL, P, P, I, I, P]
+    lib.kk_host.argtypes = [LL] + [P] * 8
+    lib.kl_host.argtypes = [LL, P, P, P, I, I, I, P, I]
+    lib.kl_host.restype = ctypes.c_int
     for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
               lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
-              lib.kg_host, lib.kh_host, lib.probe_bits_host):
+              lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
+              lib.kj_host, lib.kk_host):
         f.restype = None
     return lib
 
@@ -298,6 +304,93 @@ def test_kg_kh_bodies_match_plain(shim, trim_agg):
                                opt.n_hashes)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (want[:300] >> 32 > 0).float().mean() > 0.75
+
+
+def test_ki_body_matches_plain(shim, trim_agg):
+    """KI's block replay over the wrapper's (block, arrival) order, with
+    arrivals from 0 and from 2^33."""
+    opt, run, ret, _, _, _ = trim_agg
+    for shift in (0, 1 << 33):
+        arr = run.arr + shift
+        perm, starts = tspec.block_order(ret, arr, opt.bf_shift)
+        fp = torch.empty((len(ret),), dtype=torch.bool)
+        shim.ki_host(len(starts) - 1, _p(starts), _p(perm), _p(ret),
+                     _p(arr), opt.bf_shift, opt.n_hashes, _p(fp))
+        want = tspec.adjudicate_first_occurrence_plain(ret, arr, opt.bf_shift,
+                                                       opt.n_hashes)
+        torch.testing.assert_close(fp, want, rtol=0, atol=0)
+        assert int((want & (run.n == 1)).sum()) > 0
+        assert int((starts[1:] - starts[:-1]).max()) > 32  # hot blocks
+
+
+@pytest.mark.parametrize("k", [21, 32, 33])
+def test_kj_body_matches_plain(shim, k):
+    o = Opts()
+    o.k = k
+    l_pre = o.effective_l_pre()
+    kb_bits = tk.keybody_bits(k, l_pre)
+    rng = np.random.default_rng(k)
+    shard = torch.from_numpy(rng.integers(0, 1 << l_pre, 5000))
+    keybody = torch.from_numpy(
+        rng.integers(0, 1 << kb_bits, 5000, dtype=np.uint64).view(np.int64))
+    got = torch.empty((5000,), dtype=torch.int64)
+    shim.kj_host(5000, _p(shard), _p(keybody), k, l_pre, _p(got))
+    torch.testing.assert_close(
+        got, tsdn.derive_ret_plain(shard, keybody, k, l_pre), rtol=0, atol=0)
+
+
+def test_kk_body_matches_plain(shim, trim_agg):
+    """On the aggregate's rows with counts raised past both payload caps."""
+    opt, run, ret, _, _, _ = trim_agg
+    n, n_high = run.n * 100, run.n_high * 100
+    fp = tspec.adjudicate_first_occurrence_plain(ret, run.arr, opt.bf_shift,
+                                                 opt.n_hashes)
+    C = len(ret)
+    payload = torch.empty((C,), dtype=torch.int32)
+    keep = torch.empty((C,), dtype=torch.bool)
+    hist = torch.zeros((256,), dtype=torch.int64)
+    hist_high = torch.zeros((64,), dtype=torch.int64)
+    shim.kk_host(C, _p(n), _p(n_high), _p(run.first_high), _p(fp),
+                 _p(payload), _p(keep), _p(hist), _p(hist_high))
+    want = tspec.finalize_counts_plain(n, n_high, run.first_high, fp)
+    for g, w in zip((payload, keep, hist, hist_high), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert int(hist[255]) > 0 and int(hist_high[63]) > 0
+
+
+def test_kl_inserts_match_plain_lookups(shim, trim_agg):
+    """KL's inserts, one key after another, build a table whose lookups
+    equal the plain build's: every kept row its payload, every other row
+    -1 (the layouts differ)."""
+    opt, run, ret, _, _, _ = trim_agg
+    k, l_pre = opt.k, opt.effective_l_pre()
+    kb_bits = tk.keybody_bits(k, l_pre)
+    fp = tspec.adjudicate_first_occurrence_plain(ret, run.arr, opt.bf_shift,
+                                                 opt.n_hashes)
+    payload, keep, _, _ = tspec.finalize_counts_plain(
+        run.n, run.n_high, run.first_high, fp)
+    shard, keybody, kept = run.shard[keep], run.keybody[keep], payload[keep]
+    c_bits = TC.table_c_bits(len(shard), k, l_pre)
+    assert c_bits <= 32
+    table = torch.zeros((1 << c_bits,), dtype=torch.int64)
+    assert shim.kl_host(len(shard), _p(shard), _p(keybody), _p(kept), l_pre,
+                        kb_bits, c_bits, _p(table), 1000) == 0
+    plain, ok = tspec.cuckoo_build_plain(shard, keybody, kept, k, l_pre,
+                                         kb_bits, c_bits)
+    assert ok
+    want = tspec.cuckoo_lookup_plain(
+        tspec.SpecTable(plain, k, l_pre, kb_bits, c_bits), run.shard,
+        run.keybody)
+    got = tspec.cuckoo_lookup_plain(
+        tspec.SpecTable(table, k, l_pre, kb_bits, c_bits), run.shard,
+        run.keybody)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, torch.where(keep, payload, -1).to(
+        torch.int64), rtol=0, atol=0)
+    # a full table: 600 keys cannot sit in 512 slots
+    small = torch.zeros((512,), dtype=torch.int64)
+    assert shim.kl_host(600, _p(shard), _p(keybody), _p(kept), l_pre,
+                        kb_bits, 9, _p(small), 1000) > 0
 
 
 def _c_param_types(params: str):

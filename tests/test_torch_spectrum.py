@@ -1,6 +1,6 @@
 """Counting runs, merges, the packed pull (KE), the aggregate, finalize,
-the Bloom first-occurrence verdict (KF) and the cuckoo probe of
-bfc_tpu_torch against bfc_tpu on JAX-CPU.
+the Bloom first-occurrence verdicts (KF, KI), derive_ret (KJ) and the
+cuckoo probe of bfc_tpu_torch against bfc_tpu on JAX-CPU.
 
 Inputs come from tests/datagen.py (a 12 kb genome, 100 bp reads, 1%
 errors) and from seeded numpy batches.  Every output is an integer, so
@@ -238,3 +238,66 @@ def test_bloom_adjudicate_matches_jax(fastq, bf_shift):
         np.testing.assert_array_equal(keep, np.asarray(jkeep))
     if bf_shift == 20:
         assert 0 < int(fp.sum()) and int((fp & (jagg.n == 1)).sum()) > 0
+
+
+@pytest.mark.parametrize("bf_shift", [20, 24, 33])
+def test_first_occurrence_matches_jax(fastq, bf_shift):
+    """KI's plain version on 64-bit arrivals against bfc_tpu's
+    adjudicate_first_occurrence and the host adjudicate_np (only the host
+    sort at -b33, as above), then with every arrival shifted by 2^33,
+    which keeps their order: the verdicts must not change, and
+    spec.adjudicate must take KI there and KF below 2^32."""
+    jo = _opts(JOpts, 21, bf_shift)
+    jagg, _ = JC.count_batches_aggregate(fastq, jo, batch_reads=512)
+    C = len(jagg.shard)
+    ret = torch.from_numpy(jagg.ret.view(np.int64))
+    arr = torch.from_numpy(jagg.first_arr.view(np.int64))
+    n = torch.from_numpy(jagg.n.astype(np.int64))
+    fp = tspec.adjudicate_first_occurrence(ret, arr, bf_shift, jo.n_hashes)
+    want = tsph.adjudicate_np(jagg.ret, jagg.first_arr, np.ones(C, bool),
+                              bf_shift, jo.n_hashes)
+    np.testing.assert_array_equal(fp.numpy(), want)
+    if bf_shift <= 24:
+        agg = jspec.Aggregate(*(jnp.asarray(getattr(jagg, f)) for f in
+                                jspec.Aggregate._fields))
+        np.testing.assert_array_equal(fp.numpy(), np.asarray(
+            jspec.adjudicate_first_occurrence(agg, bf_shift, jo.n_hashes)))
+    shifted = arr + (1 << 33)
+    torch.testing.assert_close(
+        tspec.adjudicate_first_occurrence(ret, shifted, bf_shift, jo.n_hashes),
+        fp, rtol=0, atol=0)
+    keep = (n >= 2) | fp
+    for a, by in ((arr, "KF"), (shifted, "KI")):
+        v = tspec.adjudicate(ret, a, n, bf_shift, jo.n_hashes)
+        assert v.by == by
+        torch.testing.assert_close(v.fp, fp, rtol=0, atol=0)
+        torch.testing.assert_close(v.keep, keep, rtol=0, atol=0)
+
+
+def test_first_occurrence_ties_do_not_see_each_other():
+    """Rows of one arrival (which a stream never has, each first occurrence
+    owning its slot) are judged against earlier arrivals only, as the sort
+    formulation does."""
+    ret = torch.tensor([5, 5, 5], dtype=torch.int64)
+    fp = tspec.adjudicate_first_occurrence(
+        ret, torch.tensor([7, 7, 9]), 20, 4)
+    assert fp.tolist() == [False, False, True]
+
+
+@pytest.mark.parametrize("k", [21, 32, 33])
+def test_derive_ret_matches_jax(k):
+    """KJ's plain version against bfc_tpu's derive_ret_device and
+    derive_ret_np on seeded identities at every derivable width."""
+    l_pre = _opts(Opts, k).effective_l_pre()
+    kb_bits = tk.keybody_bits(k, l_pre)
+    rng = np.random.default_rng(k)
+    shard = rng.integers(0, 1 << l_pre, 4000).astype(np.uint32)
+    keybody = rng.integers(0, 1 << kb_bits, 4000, dtype=np.uint64)
+    want = np.asarray(jsdn.derive_ret_device(jnp.asarray(shard),
+                                             jnp.asarray(keybody), k, l_pre))
+    np.testing.assert_array_equal(tsdn.derive_ret_np(shard, keybody, k, l_pre),
+                                  want)
+    got = tsdn.derive_ret(torch.from_numpy(shard.astype(np.int64)),
+                          torch.from_numpy(keybody.view(np.int64)), k, l_pre)
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+    assert (want >> np.uint64(63)).any() == (k >= 32)

@@ -16,6 +16,7 @@ from bfc_tpu.models import trimmer as JT
 from bfc_tpu.ops import spectrum as jspec
 from bfc_tpu.opts import Opts as JOpts
 from bfc_tpu_torch.models import counter as TC
+from bfc_tpu_torch.models import device_pipeline as TDP
 from bfc_tpu_torch.models import refmodel as M
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import kmer as tk
@@ -166,3 +167,55 @@ def test_trimmer_keep_set_matches_jax(fastq, monkeypatch):
     np.testing.assert_array_equal(set_bits(got_kf.words.numpy()), bits)
     jagg, _ = JC.count_batches_aggregate(fq, jo, batch_reads=512)
     assert info["n_aggregated"] == len(jagg.shard)
+
+
+def _arrivals_from(monkeypatch, base):
+    """Number the stream's slots from base: every AggBuilder starts there."""
+    init = TC.AggBuilder.__init__
+
+    def shifted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.arrival_base = base
+
+    monkeypatch.setattr(TC.AggBuilder, "__init__", shifted)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the plain versions' many small ops only lose
+    to thread start-up, most of all beside the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("device_finalize", [False, True],
+                         ids=["host-finalize", "device-finalize"])
+def test_trim_with_arrivals_past_2_32(fastq, monkeypatch, one_thread,
+                                     device_finalize):
+    """A stream whose arrivals start at 2^33 keeps their order, so trim
+    must keep the same k-mers and write the same bytes; the verdict there
+    is KI (the host sketch drops out past 2^32, and KF needs u32
+    arrivals), and at 0 KF or the host sketch."""
+    fq, _, _ = fastq
+    opt = Opts()
+    opt.k = 21
+    opt.bf_shift = 20
+    opt.filter_mode = True
+    want, got = {}, {}
+    # batches of 512 reads: the dataset's 1,500 reads in a few small steps
+    small = dict(device="cpu", batch_reads=512, count_batch_reads=512,
+                 device_finalize=device_finalize)
+    want_out = TDP.run_device(opt, fq, report=want, **small)
+    _arrivals_from(monkeypatch, 1 << 33)
+    got_out = TDP.run_device(opt, fq, report=got, **small)
+    assert want["verdict"] == ("KF" if device_finalize else "host sketch")
+    assert got["verdict"] == "KI"
+    assert got["finalize"] == want["finalize"] == (
+        "device" if device_finalize else "host")
+    torch.testing.assert_close(got["keep"], want["keep"], rtol=0, atol=0)
+    np.testing.assert_array_equal(set_bits(got["bloom"].words.numpy()),
+                                  set_bits(want["bloom"].words.numpy()))
+    assert 0 < got["reads_kept"] < 1500
+    assert got_out == want_out

@@ -4,13 +4,16 @@ Usage: python -m bfc_tpu_torch [options] <to-count.fq> [to-correct.fq]
 
 The flag parsing of bfc_tpu's CLI.  Runs on the CUDA card unless --cpu
 asks for the CPU, where every kernel's plain version runs instead.
-Modes that later slices of the port bring raise NotImplementedError
-naming their ROADMAP item.
+--mesh N (N > 1) launches N ranks (parallel/multihost.py) that run this
+CLI as a mesh and passes rank 0's stdout through; trim mode (-1) ignores
+the mesh.  Modes that later slices of the port bring raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import getopt
+import os
 import sys
 from typing import List, Optional
 
@@ -67,12 +70,17 @@ def _not_in_slice(what: str, item: str):
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None,
+         report: Optional[dict] = None) -> int:
+    """Run the CLI; report, where given, receives run_device's report."""
+    from .parallel import comm
+
     argv = sys.argv[1:] if argv is None else argv
     opt = Opts()
     no_ec = False
     batch_reads = 8192
     device = "cuda"
+    mesh = 1
     ulog.reset_clock()
     try:
         optlist, args = getopt.getopt(
@@ -136,11 +144,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif flag == "--cpu":
             device = "cpu"
         elif flag == "--mesh":
-            if int(val) > 1:
-                _not_in_slice("--mesh (multiple devices)", "11")
+            mesh = int(val)
     if not args:
         usage(sys.stderr, opt)
         return 1
+    in_mesh = comm.active()
+    if in_mesh and mesh not in (1, comm.size()):
+        raise ValueError(f"--mesh {mesh} in a mesh of {comm.size()} ranks")
+    if ((mesh > 1 or in_mesh) and not opt.filter_mode
+            and os.environ.get("BFC_TPU_SHARD_TABLE", "0") == "1"):
+        _not_in_slice("BFC_TPU_SHARD_TABLE=1 (the prefix-sharded table, "
+                      "K11b)", "11")
+    if mesh > 1 and not in_mesh and not opt.filter_mode:
+        from .parallel import multihost
+
+        return multihost.launch(mesh, argv)
 
     from .models import device_pipeline as DP
 
@@ -148,7 +166,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # reference's pipeline behavior)
     DP.run_device(opt, args[0], correct_fn=args[1] if len(args) > 1 else None,
                   no_ec=no_ec, batch_reads=batch_reads,
-                  sink=sys.stdout.buffer, device=device)
+                  sink=sys.stdout.buffer, device=device, report=report)
     sys.stderr.write(f"[M::main] Version: {VERSION}\n")
     sys.stderr.write("[M::main] CMD: bfc-tpu-torch " + " ".join(argv) + "\n")
     sys.stderr.write(

@@ -12,6 +12,7 @@
 #include "finalize.cuh"
 #include "kcov_island.cuh"
 #include "kmer_stream.cuh"
+#include "route_rows.cuh"
 #include "run_combine.cuh"
 
 extern "C" {
@@ -150,6 +151,28 @@ int kl_host(long long n, const int64_t* shard, const int64_t* keybody,
         fail += !cuckoo_insert(table, e, slot, c_bits, max_steps);
     }
     return fail;
+}
+
+// KM's pass (i) tile by tile: cnt is [R x n_tiles].
+void km_count_host(long long N, int rule, const int64_t* shard,
+                   const int64_t* ret, int param, int R, long long n_tiles,
+                   int64_t* cnt) {
+    for (long long t = 0; t < n_tiles; t++)
+        km_count_tile(t, N, rule, shard, ret, param, R, n_tiles, cnt);
+}
+
+// KM's pass (ii) tile by tile, from the scanned offsets.
+void km_scatter_host(long long N, int rule, const int64_t* shard,
+                     const int64_t* ret, int param, int R, long long n_tiles,
+                     const int64_t* off, const int64_t* in0,
+                     const int64_t* in1, const int64_t* in2,
+                     const int64_t* in3, int64_t* out0, int64_t* out1,
+                     int64_t* out2, int64_t* out3, int64_t* perm) {
+    KmCols c = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
+    int64_t next[KM_MAX_RANKS];
+    for (long long t = 0; t < n_tiles; t++)
+        km_scatter_tile(t, N, rule, shard, ret, param, R, n_tiles, off, c,
+                        perm, next);
 }
 
 void probe_bits_host(long long C, const int64_t* ret, int bf_shift,

@@ -116,8 +116,12 @@ KK = Kernel("finalize_counts", {
 KL = Kernel("cuckoo_build", {
     "kl_launch": [_LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 })
+KM = Kernel("route_rows", {
+    "km_count_launch": [_LL, _I, _P, _P, _I, _I, _LL, _P, _P],
+    "km_scatter_launch": [_LL, _I, _P, _P, _I, _I, _LL] + [_P] * 11,
+})
 KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH, KI, KJ, KK,
-                               KL)}
+                               KL, KM)}
 
 
 def reset_launches() -> None:
@@ -146,10 +150,15 @@ def build_all() -> float:
     """Compile every stale kernel library in parallel; returns seconds.
 
     The compiler's register and spill report for each library is kept
-    beside it as <name>.ptxas.txt."""
-    with _lock:
+    beside it as <name>.ptxas.txt.  A file lock serialises builds across
+    processes (the ranks of a mesh run), so one builds and the rest find
+    the stamps fresh."""
+    import fcntl
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         t0 = time.time()
-        BUILD.mkdir(parents=True, exist_ok=True)
         jobs = []
         for k in KERNELS.values():
             h = _src_hash(k.source)

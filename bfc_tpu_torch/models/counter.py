@@ -146,6 +146,10 @@ class AggBuilder:
             torch.from_numpy(lens).to(dev), self.arrival_base, self.k,
             self.l_pre, self.carry)
         self.arrival_base += B * L
+        self.add_run(run)
+
+    def add_run(self, run: sdn.Run) -> None:
+        """Push the run of the next stream span into the tree."""
         self.n_batches += 1
         level = 0
         while self.tree and self.tree[-1][0] == level:
@@ -218,29 +222,36 @@ def pull_columns(cols):
     return [None if f is None else f.cpu().numpy() for f in cols]
 
 
-def padded_batches(fn: str, opt: Opts, batch_reads: int):
+def padded_batches(fn: str, opt: Opts, batch_reads: int, rows=None):
     """The native reader's batches as AggBuilder.add takes them: (bases,
-    qual_ok, lens, n), padded to batch_reads reads and the sticky L."""
+    qual_ok, lens, n), padded to batch_reads reads and the sticky L, which
+    every batch's longest read sets.  rows=(lo, hi) yields only rows
+    [lo, hi) of each padded batch and decodes only those
+    (count_file_mesh's share); n stays the batch's read count."""
     from ..io import fast_reader as FR
 
+    lo, hi = (0, batch_reads) if rows is None else rows
     pad_L = 0
-    for rb in FR.iter_batches_prefetch(fn, batch_reads, max_bases=opt.chunk_size):
+    for rb in FR.iter_batches_prefetch(fn, batch_reads, max_bases=opt.chunk_size,
+                                       decode_range=rows):
         n = rb.n
-        lens0 = rb.lens
-        pad_L = max(pad_L, _round_up(int(lens0.max()) if n else 1, 32))
+        a, b = min(lo, n), min(hi, n)
+        rb.ensure_decoded(a, b)  # a -L split can shift the decoded rows
+        pad_L = max(pad_L, _round_up(int(rb.lens.max()) if n else 1, 32))
         L = pad_L
-        B = batch_reads
+        m = b - a
+        lens0 = rb.lens[a:b]
         Lc = min(L, rb.bases.shape[1])
-        bases = np.full((B, L), 4, np.uint8)
-        bases[:n, :Lc] = rb.bases[:, :Lc]
-        lens = np.zeros((B,), np.int32)
-        lens[:n] = lens0
-        qok = np.zeros((B, L), bool)
-        has_q = rb.has_qual()
+        bases = np.full((hi - lo, L), 4, np.uint8)
+        bases[:m, :Lc] = rb.bases[a:b, :Lc]
+        lens = np.zeros((hi - lo,), np.int32)
+        lens[:m] = lens0
+        qok = np.zeros((hi - lo, L), bool)
+        has_q = rb.has_qual()[a:b]
         inb = np.arange(Lc)[None, :] < lens0[:, None]
-        qok[:n, :Lc] = np.where(
+        qok[:m, :Lc] = np.where(
             has_q[:, None],
-            rb.quals[:, :Lc].astype(np.int32) - 33 >= opt.q,
+            rb.quals[a:b, :Lc].astype(np.int32) - 33 >= opt.q,
             inb,
         )
         yield bases, qok, lens, n
@@ -289,16 +300,24 @@ def finalize_on_device(run: sdn.Run, opt: Opts, device) -> DeviceSpectrum:
     compacted, and KL, retried one bit larger on a failed placement.  The
     host copy of the entries is pulled at first use."""
     t0 = time.time()
-    k, l_pre = opt.k, opt.effective_l_pre()
-    kb_bits = kops.keybody_bits(k, l_pre)
-    run = sdn.run_to_aggregate(run, k, l_pre)
+    run = sdn.run_to_aggregate(run, opt.k, opt.effective_l_pre())
     fp, _, verdict = spec.adjudicate(run.ret, run.arr, run.n, opt.bf_shift,
                                      opt.n_hashes)
     payload, keep, hist, hist_high = spec.finalize_counts(
         run.n, run.n_high, run.first_high, fp)
     idx = torch.nonzero(keep).flatten()
-    shard, keybody, payload = run.shard[idx], run.keybody[idx], payload[idx]
-    n = idx.shape[0]
+    return table_on_device(run.shard[idx], run.keybody[idx], payload[idx],
+                           hist, hist_high, opt, verdict, t0)
+
+
+def table_on_device(shard, keybody, payload, hist, hist_high, opt: Opts,
+                    verdict: str, t0: float) -> DeviceSpectrum:
+    """The device finalize's table (KL) from the kept entries (int64
+    shard and keybody, int32 payload) at table_c_bits, retried one bit
+    larger on a failed placement; t0 is when the finalize began."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    kb_bits = kops.keybody_bits(k, l_pre)
+    n = shard.shape[0]
     t1 = time.time()
     c_bits = table_c_bits(n, k, l_pre, opt.predicted_c_bits())
     while True:

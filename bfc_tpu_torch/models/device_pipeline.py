@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from ..io.fastq import Read, format_corrected, pack_stats
+from ..io.writer import OutputWriter
 from ..opts import Opts
+from ..parallel import comm
 from ..utils.log import log
 from .corrector import BatchResult, Corrector
 from .counter import DeviceSpectrum, count_file_device, device_finalize_on
@@ -40,21 +42,39 @@ def resolve_device(device=None) -> torch.device:
 
 
 def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
-                        batch_reads: int = 8192) -> Corrector:
+                        batch_reads: int = 8192, mesh: bool = False
+                        ) -> Corrector:
+    """Correct fn batch by batch and write the records in input order.
+
+    With mesh (data-parallel correction, bfc_tpu's device_pipeline.py:
+    58-91) rank r of R corrects and formats rows [n r/R, n (r+1)/R) of
+    every batch of n reads against its own copy of the table, and rank 0
+    gathers the byte segments in rank order and writes them; the other
+    ranks write nothing."""
     from ..io import fast_reader as FR
 
+    R, r = (comm.size(), comm.rank()) if mesh else (1, 0)
     corr = Corrector(opt, ds)
     n_done = 0
     t_corr = t_emit = 0.0
     for rb in FR.iter_batches_prefetch(fn, batch_reads, max_bases=opt.chunk_size):
         if rb.n == 0:
             continue
+        a, b = rb.n * r // R, rb.n * (r + 1) // R
+        dst = OutputWriter(None) if mesh else out
         t0 = time.time()
-        res = corr.correct_arrays(rb.bases, rb.quals, rb.lens, rb.has_qual(),
-                                  lambda i, rb=rb: (rb.seq(i), rb.qual(i)))
+        res = None
+        if b > a:
+            res = corr.correct_arrays(
+                rb.bases[a:b], rb.quals[a:b], rb.lens[a:b],
+                rb.has_qual()[a:b],
+                lambda i, rb=rb, a=a: (rb.seq(a + i), rb.qual(a + i)))
         t1 = time.time()
-        if not _emit_rb_native(rb, res, opt, out):
-            _emit_rb_python(rb, res, opt, out)
+        if res is not None and not _emit_rb_native(rb, res, opt, dst, a):
+            _emit_rb_python(rb, res, opt, dst, a)
+        if mesh:
+            for seg in comm.gather_segments(dst.getbytes()):
+                out.write_bytes(seg)
         t_corr += t1 - t0
         t_emit += time.time() - t1
         n_done += rb.n
@@ -64,12 +84,12 @@ def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
     return corr
 
 
-def _emit_rb_native(rb, res: BatchResult, opt: Opts, out) -> bool:
-    """Emit one batch's records via the native formatter
-    (native/fastxio.c:fastx_format, the counterpart of the reference's
-    output loop correct.c:596-611).  Returns False to fall back to the
-    per-read Python path (slow-parser batches, scalar-fallback reads, no
-    native library)."""
+def _emit_rb_native(rb, res: BatchResult, opt: Opts, out, a: int = 0) -> bool:
+    """Emit the records of rows [a, a + res.n) of a batch via the native
+    formatter (native/fastxio.c:fastx_format, the counterpart of the
+    reference's output loop correct.c:596-611).  Returns False to fall
+    back to the per-read Python path (slow-parser batches, scalar-fallback
+    reads, no native library)."""
     import ctypes
 
     from ..native.build import get_lib
@@ -84,11 +104,12 @@ def _emit_rb_native(rb, res: BatchResult, opt: Opts, out) -> bool:
         is_fq.astype(np.uint8) << 2)
     if opt.discard:
         mode = np.where(code != 0, 3, mode).astype(np.uint8)
+    b = a + res.n
     lens = np.ascontiguousarray(res.lens, dtype=np.int32)
-    name_off = np.ascontiguousarray(rb.name_off, dtype=np.int64)
-    name_len = np.ascontiguousarray(rb.name_len, dtype=np.int32)
-    seq_off = np.ascontiguousarray(rb.seq_off, dtype=np.int64)
-    qual_off = np.ascontiguousarray(rb.qual_off, dtype=np.int64)
+    name_off = np.ascontiguousarray(rb.name_off[a:b], dtype=np.int64)
+    name_len = np.ascontiguousarray(rb.name_len[a:b], dtype=np.int32)
+    seq_off = np.ascontiguousarray(rb.seq_off[a:b], dtype=np.int64)
+    qual_off = np.ascontiguousarray(rb.qual_off[a:b], dtype=np.int64)
     seq_rows = np.ascontiguousarray(res.seq_rows)
     qual_rows = np.ascontiguousarray(res.qual_rows)
     aux = np.ascontiguousarray(res.aux)
@@ -100,7 +121,7 @@ def _emit_rb_native(rb, res: BatchResult, opt: Opts, out) -> bool:
         return arr.ctypes.data_as(ctypes.POINTER(ct))
 
     ret = lib.fastx_format(
-        rb.n, rb.buf,
+        res.n, rb.buf,
         p(name_off, ctypes.c_int64), p(name_len, ctypes.c_int32),
         p(seq_off, ctypes.c_int64), p(qual_off, ctypes.c_int64),
         p(seq_rows, ctypes.c_ubyte), p(qual_rows, ctypes.c_ubyte),
@@ -116,11 +137,12 @@ def _emit_rb_native(rb, res: BatchResult, opt: Opts, out) -> bool:
     return True
 
 
-def _emit_rb_python(rb, res: BatchResult, opt: Opts, out) -> None:
-    """Per-read emit path (slow-parser batches and fallback reads)."""
-    for i in range(rb.n):
+def _emit_rb_python(rb, res: BatchResult, opt: Opts, out, a: int = 0) -> None:
+    """Per-read emit path (slow-parser batches and fallback reads) for
+    rows [a, a + res.n) of a batch."""
+    for i in range(res.n):
         st, s2, q2 = res.tuple_of(i)
-        r = Read(name=rb.name(i), comment=None, seq=s2, qual=q2)
+        r = Read(name=rb.name(a + i), comment=None, seq=s2, qual=q2)
         r.aux, r.aux2 = pack_stats(st)
         format_corrected(r, opt.no_qual, False, opt.discard, out)
 
@@ -143,11 +165,23 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     verdict ran, and counts: for correction the read and k-mer counts,
     the spectrum and the number of reads corrected by the scalar
     fallback; for trim the reads kept and dropped, the k-mers kept, the
-    set bits of the Bloom filter and the filter itself."""
-    from ..io.writer import OutputWriter
+    set bits of the Bloom filter and the filter itself.
 
+    In a rank of a torch.distributed process group it runs the
+    multi-device path (bfc_tpu's mesh_devices,
+    device_pipeline.py:340-380): prefix-sharded counting, the distributed
+    finalize (always on the devices) and data-parallel correction, with
+    rank 0 writing the output.  The report then also holds the world
+    size, the backend and every rank's kernel launch counts, and the
+    fallback count of all ranks.  Trim mode ignores the mesh, as bfc_tpu
+    does: rank 0 trims on its device and the other ranks return."""
     dev = resolve_device(device)
-    on = device_finalize_on(device_finalize)
+    mesh = comm.active()
+    if opt.filter_mode and mesh:
+        if comm.rank() != 0:
+            return ""
+        mesh = False
+    on = mesh or device_finalize_on(device_finalize)
     out = OutputWriter(sink)
     next_fn = correct_fn if correct_fn is not None else count_fn
     t0 = time.time()
@@ -168,24 +202,51 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                           reads_dropped=trimmer.n_reads - trimmer.n_kept,
                           n_set_bits=popcount(bloom.words), bloom=bloom)
     else:
-        ds = count_file_device(count_fn, opt, dev,
-                               batch_reads=count_batch_reads,
-                               device_finalize=on)
+        if mesh:
+            from ..parallel import mesh as pmesh
+
+            R = comm.size()  # each rank takes an equal share of a batch
+            ds = pmesh.count_file_mesh(
+                count_fn, opt, dev,
+                batch_reads=-(-count_batch_reads // R) * R)
+        else:
+            ds = count_file_device(count_fn, opt, dev,
+                                   batch_reads=count_batch_reads,
+                                   device_finalize=on)
         _sync(dev)
         t1 = time.time()
         corr = None
         if not no_ec:
             corr = correct_file_device(next_fn, opt, ds, out,
-                                       batch_reads=batch_reads)
+                                       batch_reads=batch_reads, mesh=mesh)
             _sync(dev)
+        n_fallback = corr.n_fallback if corr is not None else 0
         if report is not None:
             report.update(
                 finalize="device" if on else "host", verdict=ds.verdict,
                 count_s=t1 - t0, correct_s=time.time() - t1,
                 n_reads=ds.n_reads, n_aggregated=ds.n_aggregated,
-                n_kept=ds.n_entries, spectrum=ds,
-                n_fallback=corr.n_fallback if corr is not None else 0)
+                n_kept=ds.n_entries, spectrum=ds, n_fallback=n_fallback)
+        if mesh:
+            _report_ranks(report, n_fallback)
     if sink is not None:
         out.flush()
         return ""
     return out.getvalue()
+
+
+def _report_ranks(report: Optional[dict], n_fallback: int) -> None:
+    """The mesh's part of the report, a collective: world size, backend,
+    every rank's launch counts (in rank order) and the fallback reads of
+    all ranks."""
+    import json
+
+    from .. import kernels
+
+    mine = json.dumps({k.name: k.launches for k in kernels.KERNELS.values()})
+    ranks = [json.loads(b.tobytes()) for b in comm.all_gather_bytes(
+        np.frombuffer(mine.encode(), np.uint8))]
+    total = int(comm.all_reduce(torch.tensor([n_fallback])))
+    if report is not None:
+        report.update(world_size=comm.size(), backend=comm.backend(),
+                      launches_by_rank=ranks, n_fallback=total)

@@ -34,10 +34,14 @@ def get_lib():
         h = _src_hash()
         if (not _SO.exists() or not _STAMP.exists()
                 or _STAMP.read_text().strip() != h):
+            # build beside the library and rename over it, so the ranks
+            # of a mesh run that build at once never load a partial file
+            tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
             subprocess.run(
-                ["cc", "-O3", "-fPIC", "-shared", "-o", str(_SO), str(_SRC)],
+                ["cc", "-O3", "-fPIC", "-shared", "-o", str(tmp), str(_SRC)],
                 check=True, capture_output=True,
             )
+            os.replace(tmp, _SO)
             _STAMP.write_text(h)
         lib = ctypes.CDLL(str(_SO))
         _parse_args = [

@@ -113,19 +113,41 @@ def _gather(r: Run, perm) -> Run:
     return Run(*(None if f is None else f[perm] for f in r))
 
 
+class Rows(NamedTuple):
+    """One k-mer slot a row, in arrival order (KA's output, flattened)."""
+
+    shard: torch.Tensor    # int64 [N], INVALID_SHARD where no k-mer ends
+    keybody: torch.Tensor  # int64 [N]
+    arrp: torch.Tensor     # int64 [N] arrival << 1 | is_high
+    ret: Optional[torch.Tensor]  # int64 [N], when carried
+
+
+def chunk_rows(bases, qual_ok, lens, arrival_base: int, k: int, l_pre: int,
+               carry_ret: bool) -> Rows:
+    """One padded read batch -> its k-mer rows (kernel KA)."""
+    shard, keybody, arrp, ret = kops.kmer_stream(
+        bases, qual_ok, lens, k, l_pre, arrival_base, with_ret=carry_ret)
+    return Rows(shard.view(-1), keybody.view(-1), arrp.view(-1),
+                None if ret is None else ret.view(-1))
+
+
+def rows_run(rows: Rows) -> Run:
+    """Rows in arrival order -> a sorted, combined, compacted run (the
+    stable sort and KB).  Rows with INVALID_SHARD sort last and drop."""
+    perm = stable_order(rows.shard, rows.keybody)
+    arrp = rows.arrp[perm]
+    high = arrp & 1
+    srt = Run(rows.shard[perm], rows.keybody[perm], arrp >> 1,
+              torch.ones_like(high), high, high.to(torch.uint8),
+              None if rows.ret is None else rows.ret[perm])
+    return run_combine(srt)
+
+
 def chunk_run(bases, qual_ok, lens, arrival_base: int, k: int, l_pre: int,
               carry_ret: bool) -> Run:
     """One padded read batch -> a sorted, combined, compacted run."""
-    shard, keybody, arrp, ret = kops.kmer_stream(
-        bases, qual_ok, lens, k, l_pre, arrival_base, with_ret=carry_ret)
-    shard, keybody, arrp = shard.view(-1), keybody.view(-1), arrp.view(-1)
-    perm = stable_order(shard, keybody)
-    arrp = arrp[perm]
-    high = arrp & 1
-    srt = Run(shard[perm], keybody[perm], arrp >> 1, torch.ones_like(high),
-              high, high.to(torch.uint8),
-              None if ret is None else ret.view(-1)[perm])
-    return run_combine(srt)
+    return rows_run(chunk_rows(bases, qual_ok, lens, arrival_base, k, l_pre,
+                               carry_ret))
 
 
 def merge_bytes(a: Run, b: Run) -> int:

@@ -1,7 +1,8 @@
-"""Smoke run of bfc_tpu_torch on one CUDA card: builds the twelve kernels,
-drives the count + correct main path and the trim path (-1) at E. coli
-scale, with the host finalize and with the device finalize, and holds
-every kernel against its plain PyTorch version.
+"""Smoke run of bfc_tpu_torch on one CUDA card: builds the thirteen
+kernels, drives the count + correct main path and the trim path (-1) at
+E. coli scale, with the host finalize, with the device finalize and over
+a mesh of ranks, and holds every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -62,6 +63,19 @@ Phases (any failure raises; nothing is caught):
    plain version on the trim fold and against the host's exact replay
    there; KJ and KK on the main fold; KL on the main fold's kept entries,
    compared by lookups with its plain version's table.
+10. The main path over the mesh, as `python -m bfc_tpu_torch --mesh R -s 5m
+   reads.fq` runs it, through the launcher (parallel/multihost.py) on the
+   same reads: (a) R = torch.cuda.device_count() ranks over NCCL (one rank
+   on a one-card machine, whose all_to_alls send to itself); (b) two ranks
+   sharing cuda:0 over gloo, whose exchanges are staged through host
+   memory.  Each rank's launch counts start at 0 in its new process and
+   are read at its end; in every rank KA, KM, KB, KJ, KI, KK, KL, KC and
+   KD must have launched and KE and KF not, and each output must hash as
+   phase 2's.  A rank that fails fails the run.
+11. KM against its plain version: by the prefix rule on the counting
+   batch's KA rows (16,384 reads x 128 slots) at R = 2, 4 and 8, and by
+   the Bloom-block rule on the main fold's (ret, arrival) rows at R = 2
+   and 8.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times are CUDA-event means over repeated launches after a warm-up.
@@ -96,12 +110,14 @@ from bfc_tpu_torch.models import refmodel as M
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as ann
 from bfc_tpu_torch.ops import kmer as kops
+from bfc_tpu_torch.ops import route
 from bfc_tpu_torch.ops import search as srch
 from bfc_tpu_torch.ops import spectrum as spec
 from bfc_tpu_torch.ops import spectrum_dense as sdn
 from bfc_tpu_torch.ops import spectrum_host as sph
 from bfc_tpu_torch.ops.spectrum import IntProbe
 from bfc_tpu_torch.opts import Opts
+from bfc_tpu_torch.parallel import multihost
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 at 3.35 TB/s.  The 32-bit integer pipe has 64 lanes per SM, one op
@@ -124,6 +140,7 @@ BLOCK = 2 * SECTOR
 OPS_KE_ROW = 2 * 8
 OPS_KJ_ROW = 2 * 15   # the identity inverted and ret rebuilt
 OPS_KK_ROW = 2 * 10   # the payload rule and two bin increments
+OPS_KM_ROW = 2 * 12   # the destination rule, twice, and a rank
 
 COUNT_B, COUNT_L = 16384, 128   # run_device's counting batch (padded to 32)
 CORR_B = 8192                   # run_device's correction batch
@@ -808,6 +825,64 @@ def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
     return res
 
 
+def drive_mesh(fq: Path, out: Path, n: int, backend: str, tmp: Path):
+    """The main path over n ranks through the launcher (`--mesh n -s 5m`),
+    rank 0's stdout into out.  Returns rank 0's report, which holds every
+    rank's launch counts (launches_by_rank) and the phase walls."""
+    rep_path = tmp / f"mesh_{backend}_{n}.json"
+    with open(out, "wb") as sink:
+        rc = multihost.launch(n, ["-s", "5m", str(fq)], backend=backend,
+                              stdout=sink, report_path=str(rep_path))
+    if rc != 0:
+        fail(f"the mesh run over {n} {backend} ranks exited with {rc}")
+    return json.loads(rep_path.read_text())
+
+
+def check_route(opt, fold, bases, quals, dev):
+    """KM against its plain version on the card: the prefix rule on the
+    counting batch's KA rows at R = 2, 4 and 8, the Bloom-block rule on
+    the main fold's (ret, arrival) rows at R = 2 and 8.  Times and bounds
+    are those of the counting batch at R = 2; the fold's are kept
+    beside them.  Each time covers the wrapper's whole call, its read of
+    the counts included."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    cb, cq, cl = count_batch(bases, quals, opt, dev)
+    rows = sdn.chunk_rows(cb, cq, cl, 0, k, l_pre, False)
+    ret = sdn.derive_ret(fold.shard, fold.keybody, k, l_pre)
+    cases = [("prefix", R, list(rows), route.PREFIX, l_pre,
+              dict(shard=rows.shard)) for R in (2, 4, 8)]
+    cases += [("bloom", R, [ret, fold.arr], route.BLOOM, opt.bf_shift,
+               dict(ret=ret)) for R in (2, 8)]
+    r = {"mismatches": 0, "max_abs_err": 0.0}
+    for rule, R, cols, rid, param, kw in cases:
+        got = route.route_rows(cols, R, rid, param, **kw)
+        want = route.route_rows_plain(cols, R, rid, param, **kw)
+        if got.counts != want.counts:
+            r["mismatches"] += 1
+        err, n_diff = compare(got.cols + [got.perm], want.cols + [want.perm])
+        r["mismatches"] += n_diff
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        sent = sum(got.counts)
+        del got, want
+        if R != 2:
+            continue
+        N = cols[0].shape[0]
+        n_cols = sum(c is not None for c in cols)
+        ms = cuda_ms(lambda: route.route_rows(cols, R, rid, param, **kw), 10)
+        plain_ms = cuda_ms(
+            lambda: route.route_rows_plain(cols, R, rid, param, **kw), 3)
+        bnd = bound(N * 8 * n_cols + sent * 8 * (n_cols + 1),
+                    N * OPS_KM_ROW)
+        if rule == "prefix":
+            r.update(ms=ms, plain_ms=plain_ms, bound=bnd, rows=N,
+                     rows_sent=sent)
+        else:
+            r.update(ms_fold=ms, plain_ms_fold=plain_ms,
+                     bound_ms_fold=bnd[0], rows_fold=N)
+        torch.cuda.empty_cache()
+    return r
+
+
 # --------------------------------------------------------------------------
 
 SOURCES = {
@@ -835,6 +910,8 @@ SOURCES = {
                         "bfc_tpu/ops/spectrum.py:868"),
     "cuckoo_build": ("KL", "bfc_tpu_torch/csrc/cuckoo_build.cu",
                      "bfc_tpu/ops/spectrum.py:543"),
+    "route_rows": ("KM", "bfc_tpu_torch/csrc/route_rows.cu",
+                   "bfc_tpu/parallel/mesh.py:120"),
 }
 MAIN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "kcov_island",
                 "ec1_search")
@@ -845,6 +922,9 @@ MAIN_DEVICE_KERNELS = ("kmer_stream", "run_combine", "derive_ret",
                        "kcov_island", "ec1_search")
 TRIM_DEVICE_KERNELS = ("kmer_stream", "run_combine", "bloom_adjudicate",
                        "bloom_build", "max_streak")
+MESH_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
+                "first_occurrence", "finalize_counts", "cuckoo_build",
+                "kcov_island", "ec1_search")
 
 
 def main() -> int:
@@ -1086,8 +1166,51 @@ def main() -> int:
               f"trim fold ({r['fp_b33']}), arrivals from 0 and from 2^33; "
               f"equal to its plain version and the host replay on the trim "
               f"fold; {time.time() - t0:.1f} s", flush=True)
-        del main_fold, trim_fold
+        del trim_fold
         torch.cuda.empty_cache()
+
+        # ---- KM against its plain version
+        t0 = time.time()
+        res["route_rows"] = check_route(opt, main_fold, bases, quals, dev)
+        r = res["route_rows"]
+        print(f"KM: equal to its plain version by the prefix rule on the "
+              f"{r['rows']}-row counting batch (R = 2, 4, 8) and by the "
+              f"Bloom-block rule on the {r['rows_fold']}-row main fold "
+              f"(R = 2, 8); {time.time() - t0:.1f} s", flush=True)
+        del main_fold
+        torch.cuda.empty_cache()
+
+        # ---- the main path over the mesh, through the launcher
+        mesh_launches = {}
+        for n, backend in ((torch.cuda.device_count(), "nccl"), (2, "gloo")):
+            mout = tmp / f"corrected_mesh_{backend}.fq"
+            mrep = drive_mesh(fq, mout, n, backend, tmp)
+            cs, es = mrep["count_s"], mrep["correct_s"]
+            label = f"{mrep['world_size']} {mrep['backend']} ranks"
+            print(f"main path over {label} (verdict {mrep['verdict']}): "
+                  f"counting {cs:.2f} s ({n_reads / cs:.0f} reads/s), "
+                  f"correction {es:.2f} s ({n_reads / es:.0f} reads/s), end "
+                  f"to end {n_reads / (cs + es):.0f} reads/s; "
+                  f"{mrep['n_aggregated']} distinct k-mers aggregated, "
+                  f"{mrep['n_kept']} kept; scalar fallback "
+                  f"{mrep['n_fallback']} reads; launches by rank "
+                  f"{mrep['launches_by_rank']}", flush=True)
+            if (mrep["world_size"], mrep["backend"]) != (n, backend):
+                fail(f"the mesh run reports {label}, not {n} {backend}")
+            if mrep["n_reads"] != n_reads:
+                fail(f"the mesh run over {label} counted {mrep['n_reads']} "
+                     f"reads of {n_reads}")
+            for i, ls in enumerate(mrep["launches_by_rank"]):
+                need_launched(ls, MESH_KERNELS, f"rank {i} of {label}")
+                need_silent(ls, ("pack_pull", "bloom_adjudicate"),
+                            f"rank {i} of {label}")
+            if file_hash(mout) != main_hash:
+                fail(f"the output over {label} differs from the main path's")
+            mout.unlink()
+            mesh_launches[f"mesh_{backend}_{n}"] = {
+                name: sum(ls[name] for ls in mrep["launches_by_rank"])
+                for name in SOURCES}
+        print("mesh outputs byte-identical to the main path's", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1095,7 +1218,8 @@ def main() -> int:
              "main_device_finalize": dlaunches,
              "trim_device_finalize": dtlaunches,
              "trim_device_finalize_from_2^33": ftlaunches,
-             "main_count_device_finalize_from_2^33": fclaunches}
+             "main_count_device_finalize_from_2^33": fclaunches,
+             **mesh_launches}
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
         r = res[name]
@@ -1117,7 +1241,9 @@ def main() -> int:
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                "library_ms": None}
         for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches",
-                      "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33"):
+                      "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
+                      "rows_sent", "ms_fold", "plain_ms_fold",
+                      "bound_ms_fold", "rows_fold"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "run_combine":

@@ -93,7 +93,7 @@ def test_trim_flags_match_scalar_spec(noisy, flags, files):
 
 
 @pytest.mark.parametrize("flag", [["-1", "-d", "x"], ["-R"], ["-d", "x"],
-                                  ["-r", "x"], ["-V4"], ["--mesh", "4"]])
+                                  ["-r", "x"], ["-V4"]])
 def test_modes_outside_the_slice_name_their_roadmap_item(flag, noisy):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main([*flag, "--cpu", noisy["fq"]])

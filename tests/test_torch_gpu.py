@@ -1,6 +1,7 @@
-"""The twelve CUDA kernels against their plain PyTorch versions on a card,
-and the trim path and the device finalize on the card against the same
-paths on the CPU.
+"""The thirteen CUDA kernels against their plain PyTorch versions on a
+card, the trim path and the device finalize on the card against the same
+paths on the CPU, and the mesh path (one NCCL rank, two gloo ranks
+sharing the card) against the single-device run.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -22,6 +23,7 @@ from bfc_tpu_torch.models import device_pipeline as TDP
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as ann
 from bfc_tpu_torch.ops import kmer as kops
+from bfc_tpu_torch.ops import route
 from bfc_tpu_torch.ops import search as srch
 from bfc_tpu_torch.ops import spectrum as spec
 from bfc_tpu_torch.ops import spectrum_dense as sdn
@@ -220,3 +222,46 @@ def test_device_finalize_matches_cpu(card, tmp_path):
         assert kernels.KK.launches == (0 if trim else 1)
         assert got == TDP.run_device(opt, str(fq), device="cpu",
                                      device_finalize=True)
+
+
+@pytest.mark.parametrize("R", [2, 3, 4, 8])
+def test_km_matches_plain(card, spectrum, R):
+    """KM by the prefix rule on a counting batch's KA rows, and by the
+    Bloom-block rule on the same rows' ret."""
+    opt, ds, b, q = spectrum
+    k, l_pre = opt.k, opt.effective_l_pre()
+    bases = torch.from_numpy(b[:2048]).to(card)
+    qok = torch.from_numpy(q[:2048] >= 33 + opt.q).to(card)
+    lens = torch.full((2048,), b.shape[1], dtype=torch.int32, device=card)
+    rows = [t.view(-1) for t in kops.kmer_stream(bases, qok, lens, k, l_pre,
+                                                 7, with_ret=True)]
+    for rule, param in ((route.PREFIX, l_pre), (route.BLOOM, 24)):
+        args = (rows, R, rule, param)
+        kw = dict(shard=rows[0], ret=rows[3])
+        got = route.route_rows(*args, **kw)
+        want = route.route_rows_plain(*args, **kw)
+        assert got.counts == want.counts
+        _eq(got.cols + [got.perm], want.cols + [want.perm])
+
+
+def test_mesh_matches_single_device(card, tmp_path):
+    """python -m bfc_tpu_torch.parallel.multihost on one NCCL rank and on
+    two gloo ranks sharing the card: the same bytes as run_device."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    args = ["-k23", "-b24", str(fq)]
+    opt = Opts()
+    opt.k = 23
+    opt.bf_shift = 24
+    want = TDP.run_device(opt, str(fq), device=card).encode()
+    root = Path(__file__).resolve().parents[1]
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        r = subprocess.run(
+            [sys.executable, "-m", "bfc_tpu_torch.parallel.multihost",
+             "--launch", str(n), "--backend", backend, "--", *args],
+            cwd=root, capture_output=True, check=True)
+        assert r.stdout == want, backend

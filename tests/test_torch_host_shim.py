@@ -2,9 +2,9 @@
 plain PyTorch versions.
 
 csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH), per-row (KB,
-KE, KF, KG, KJ, KK), per-block (KI) or per-key (KL) body as
-__host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
-over the reads or rows that one CUDA thread would take.  Here g++ builds
+KE, KF, KG, KJ, KK), per-block (KI), per-key (KL) or per-tile (KM) body
+as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
+over the reads, rows or tiles that one CUDA thread or block would take.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
 kernels' logic runs on a machine without a card.  Inputs are seeded
 numpy batches and a tests/datagen.py dataset (a 12 kb genome, 100 bp
@@ -25,6 +25,7 @@ from bfc_tpu_torch.models import counter as TC
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as tann
 from bfc_tpu_torch.ops import kmer as tk
+from bfc_tpu_torch.ops import route as troute
 from bfc_tpu_torch.ops import search as tsrch
 from bfc_tpu_torch.ops import spectrum as tspec
 from bfc_tpu_torch.ops import spectrum_dense as tsdn
@@ -61,10 +62,13 @@ def shim(tmp_path_factory):
     lib.kk_host.argtypes = [LL] + [P] * 8
     lib.kl_host.argtypes = [LL, P, P, P, I, I, I, P, I]
     lib.kl_host.restype = ctypes.c_int
+    lib.km_count_host.argtypes = [LL, I, P, P, I, I, LL, P]
+    lib.km_scatter_host.argtypes = [LL, I, P, P, I, I, LL] + [P] * 10
     for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
               lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
-              lib.kj_host, lib.kk_host):
+              lib.kj_host, lib.kk_host, lib.km_count_host,
+              lib.km_scatter_host):
         f.restype = None
     return lib
 
@@ -391,6 +395,83 @@ def test_kl_inserts_match_plain_lookups(shim, trim_agg):
     small = torch.zeros((512,), dtype=torch.int64)
     assert shim.kl_host(600, _p(shard), _p(keybody), _p(kept), l_pre,
                         kb_bits, 9, _p(small), 1000) > 0
+
+
+def _km_rows(R: int, rule: int, seed: int = 9):
+    """Rows over several KM tiles: shards of l_pre 20 (10% invalid), u64
+    rets, and every row bound for rank 1 made invalid, so that rank 1
+    receives nothing (for R = 3 the prefix rule leaves rank 2 empty too)."""
+    rng = np.random.default_rng(seed + R)
+    N = 3 * troute.TILE + 123
+    shard = rng.integers(0, 1 << 20, N).astype(np.int64)
+    ret = rng.integers(-(1 << 63), (1 << 63) - 1, N, dtype=np.int64)
+    shard[rng.random(N) < 0.1] = 0xFFFFFFFF
+    param = 20 if rule == troute.PREFIX else 22
+    dest = _km_dest_np(shard, ret, rule, param, R)
+    shard[dest == 1] = 0xFFFFFFFF
+    cols = [torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, N))
+            for _ in range(3)] + [None]
+    return torch.from_numpy(shard), torch.from_numpy(ret), param, cols
+
+
+def _km_dest_np(shard, ret, rule, param, R):
+    """bfc_tpu's destinations in numpy: mesh.py:_dev_of_shard (int32,
+    floor-mod) and the Bloom block's owner (mesh.py:217)."""
+    if rule == troute.PREFIX:
+        shift = max(param - int(np.log2(R)), 0)
+        dest = (shard.astype(np.uint32) >> np.uint32(shift)).astype(
+            np.int32) % R
+    else:
+        block = ret.view(np.uint64) & np.uint64((1 << (param - 9)) - 1)
+        dest = (block % np.uint64(R)).astype(np.int64)
+    return np.where(shard == 0xFFFFFFFF, R, dest).astype(np.int64)
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
+@pytest.mark.parametrize("R", [2, 3, 4, 8])
+def test_km_plain_is_a_stable_partition(R, rule):
+    """KM's plain version against a numpy stable partition by bfc_tpu's
+    destination rules; invalid rows dropped, empty destinations kept."""
+    shard, ret, param, cols = _km_rows(R, rule)
+    got = troute.route_rows_plain(cols, R, rule, param, shard=shard, ret=ret)
+    dest = _km_dest_np(shard.numpy(), ret.numpy(), rule, param, R)
+    want_counts = np.bincount(dest, minlength=R + 1)[:R]
+    assert got.counts == want_counts.tolist()
+    assert got.counts[1] == 0 and min(got.counts[:1] + got.counts[2:]) >= 0
+    order = np.argsort(dest, kind="stable")[:int(want_counts.sum())]
+    np.testing.assert_array_equal(got.perm.numpy(), order)
+    for g, c in zip(got.cols, cols):
+        if c is not None:
+            np.testing.assert_array_equal(g.numpy(), c.numpy()[order])
+    assert got.cols[3] is None
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
+@pytest.mark.parametrize("R", [2, 3, 4, 8])
+def test_km_body_matches_plain(shim, R, rule):
+    """KM's count and scatter passes, tile by tile, around the wrapper's
+    exclusive scan, against its plain version."""
+    shard, ret, param, cols = _km_rows(R, rule)
+    N = shard.shape[0]
+    want = troute.route_rows_plain(cols, R, rule, param, shard=shard, ret=ret)
+    n_tiles = (N + troute.TILE - 1) // troute.TILE
+    cnt = torch.empty((R, n_tiles), dtype=torch.int64)
+    shim.km_count_host(N, rule, _p(shard), _p(ret), param, R, n_tiles,
+                       _p(cnt))
+    assert cnt.sum(dim=1).tolist() == want.counts
+    flat = cnt.view(-1)
+    off = torch.cumsum(flat, 0) - flat
+    n = sum(want.counts)
+    outs = [None if c is None else torch.empty((n,), dtype=torch.int64)
+            for c in cols]
+    perm = torch.empty((n,), dtype=torch.int64)
+    shim.km_scatter_host(N, rule, _p(shard), _p(ret), param, R, n_tiles,
+                         _p(off), *(_p(c) for c in cols),
+                         *(_p(o) for o in outs), _p(perm))
+    torch.testing.assert_close(perm, want.perm, rtol=0, atol=0)
+    for g, w in zip(outs, want.cols):
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _c_param_types(params: str):

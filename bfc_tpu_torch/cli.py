@@ -5,15 +5,16 @@ Usage: python -m bfc_tpu_torch [options] <to-count.fq> [to-correct.fq]
 The flag parsing of bfc_tpu's CLI.  Runs on the CUDA card unless --cpu
 asks for the CPU, where every kernel's plain version runs instead.
 --mesh N (N > 1) launches N ranks (parallel/multihost.py) that run this
-CLI as a mesh and passes rank 0's stdout through; trim mode (-1) ignores
-the mesh.  Modes that later slices of the port bring raise
+CLI as a mesh and passes rank 0's stdout through; with
+BFC_TPU_SHARD_TABLE=1 and N a power of two each rank holds only its
+sub-table of the spectrum.  Trim mode (-1) ignores the mesh, -d and -r,
+as bfc_tpu's CLI does.  Modes that later slices of the port bring raise
 NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import getopt
-import os
 import sys
 from typing import List, Optional
 
@@ -81,6 +82,7 @@ def main(argv: Optional[List[str]] = None,
     batch_reads = 8192
     device = "cuda"
     mesh = 1
+    in_hash = out_hash = None
     ulog.reset_clock()
     try:
         optlist, args = getopt.getopt(
@@ -93,9 +95,9 @@ def main(argv: Optional[List[str]] = None,
         return 1
     for flag, val in optlist:
         if flag == "-d":
-            _not_in_slice("-d (dump)", "8")
+            out_hash = val
         elif flag == "-r":
-            _not_in_slice("-r (restore)", "8")
+            in_hash = val
         elif flag == "-q":
             opt.q = int(val)
         elif flag == "-b":
@@ -151,10 +153,6 @@ def main(argv: Optional[List[str]] = None,
     in_mesh = comm.active()
     if in_mesh and mesh not in (1, comm.size()):
         raise ValueError(f"--mesh {mesh} in a mesh of {comm.size()} ranks")
-    if ((mesh > 1 or in_mesh) and not opt.filter_mode
-            and os.environ.get("BFC_TPU_SHARD_TABLE", "0") == "1"):
-        _not_in_slice("BFC_TPU_SHARD_TABLE=1 (the prefix-sharded table, "
-                      "K11b)", "11")
     if mesh > 1 and not in_mesh and not opt.filter_mode:
         from .parallel import multihost
 
@@ -166,7 +164,8 @@ def main(argv: Optional[List[str]] = None,
     # reference's pipeline behavior)
     DP.run_device(opt, args[0], correct_fn=args[1] if len(args) > 1 else None,
                   no_ec=no_ec, batch_reads=batch_reads,
-                  sink=sys.stdout.buffer, device=device, report=report)
+                  sink=sys.stdout.buffer, device=device, report=report,
+                  in_hash=in_hash, out_hash=out_hash)
     sys.stderr.write(f"[M::main] Version: {VERSION}\n")
     sys.stderr.write("[M::main] CMD: bfc-tpu-torch " + " ".join(argv) + "\n")
     sys.stderr.write(

@@ -8,15 +8,28 @@
 // a match is exact.  On the card a probe is two independent random 8-byte
 // loads: each costs one 32-byte sector, and the probe is bound by their
 // latency, which the many reads in flight hide.
+//
+// The prefix-sharded table (bfc_tpu's ShardedCuckoo, spectrum.py:316-343)
+// is 1 << db sub-tables of 1 << cb_local entries, one a rank: the owner of
+// a key is the top db bits of its position key, s1 the cb_local bits
+// below them, qlow the identity bits below the top c_bits = db + cb_local,
+// and s2 = s1 ^ subtable_alt(qlow).  KC and KD read the owner's sub-table
+// through an array of device addresses, a peer's mapped by CUDA IPC;
+// cuckoo_probe_sharded replaces sharded_cuckoo_lookup (:368), whose
+// request/response all_to_all a thread in mid-search could not join.
 #pragma once
 #include "kmer.cuh"
 
 struct SpecParams {
-    const uint64_t* table;  // [1 << c_bits]
+    const uint64_t* table;  // [1 << c_bits]; null when the table is sharded
     int k;
     int l_pre;
     int kb_bits;
-    int c_bits;
+    int c_bits;             // sharded: db + cb_local
+    // the sharded table's 1 << db sub-tables, or null; every thread of a
+    // launch takes the same layout, so the branch never diverges
+    const uint64_t* const* subtables;
+    int db;
 };
 
 // Uniform 64-bit position key: shard then keybody, left-justified.
@@ -48,23 +61,54 @@ BFC_HD uint64_t cuckoo_alt(uint64_t qlow, int c_bits) {
     return h >> (32 - c_bits);
 }
 
+// The sub-table rules (spectrum.py:396-441): the owning rank of a
+// position key, its first slot in the owner's sub-table, and the
+// alternate-slot offset there, which is the 64-bit multiplicative hash at
+// every cb_local (cuckoo_alt's 32-bit form would miss silently).
+BFC_HD int subtable_owner(uint64_t pk, int db) {
+    return db ? (int)(pk >> (64 - db)) : 0;
+}
+
+BFC_HD uint64_t subtable_slot(uint64_t pk, int c_bits, int cb_local) {
+    return (pk >> (64 - c_bits)) & bfc_mask(cb_local);
+}
+
+BFC_HD uint64_t subtable_alt(uint64_t qlow, int cb_local) {
+    return (qlow * 0x9E3779B97F4A7C15ull) >> (64 - cb_local);
+}
+
 BFC_HD int cuckoo_match(uint64_t e, int nest, uint64_t qlow) {
     return (e & 0x3FFF) != 0 && (int)((e >> 14) & 1) == nest &&
            (e >> 15) == qlow;
 }
 
+BFC_HD int cuckoo_pick(uint64_t e1, uint64_t e2, uint64_t qlow) {
+    if (cuckoo_match(e1, 0, qlow)) return (int)(e1 & 0x3FFF);
+    if (cuckoo_match(e2, 1, qlow)) return (int)(e2 & 0x3FFF);
+    return -1;
+}
+
+// 14-bit payload of (shard, keybody) in the sharded table, or -1.
+BFC_HD int cuckoo_probe_sharded(const SpecParams& sp, int64_t shard,
+                                int64_t keybody) {
+    int cb_local = sp.c_bits - sp.db;
+    uint64_t pk = posk64(shard, keybody, sp.l_pre, sp.kb_bits);
+    const uint64_t* t = sp.subtables[subtable_owner(pk, sp.db)];
+    uint64_t qlow = id_low(shard, keybody, sp.l_pre, sp.kb_bits, sp.c_bits);
+    uint64_t s1 = subtable_slot(pk, sp.c_bits, cb_local);
+    uint64_t s2 = s1 ^ subtable_alt(qlow, cb_local);
+    return cuckoo_pick(t[s1], t[s2], qlow);
+}
+
 // 14-bit payload of (shard, keybody), or -1 when absent.
 BFC_HD int cuckoo_probe(const SpecParams& sp, int64_t shard,
                         int64_t keybody) {
+    if (sp.subtables) return cuckoo_probe_sharded(sp, shard, keybody);
     uint64_t pk = posk64(shard, keybody, sp.l_pre, sp.kb_bits);
     uint64_t s1 = pk >> (64 - sp.c_bits);
     uint64_t qlow = id_low(shard, keybody, sp.l_pre, sp.kb_bits, sp.c_bits);
     uint64_t s2 = s1 ^ cuckoo_alt(qlow, sp.c_bits);
-    uint64_t e1 = sp.table[s1];
-    uint64_t e2 = sp.table[s2];
-    if (cuckoo_match(e1, 0, qlow)) return (int)(e1 & 0x3FFF);
-    if (cuckoo_match(e2, 1, qlow)) return (int)(e2 & 0x3FFF);
-    return -1;
+    return cuckoo_pick(sp.table[s1], sp.table[s2], qlow);
 }
 
 #ifdef __CUDA_ARCH__
@@ -89,18 +133,31 @@ BFC_HD uint64_t cuckoo_entry(int64_t shard, int64_t keybody, int payload,
            (uint64_t)(payload & 0x3FFF);
 }
 
-// KL's insert (replaces cuckoo_build_device's placement rounds,
-// spectrum.py:543): swap entry e into its slot; an evicted entry moves to
-// its other slot, slot ^ cuckoo_alt(qlow), with its nest bit flipped, so
-// the chain needs nothing but the entries.  Every exchange is atomic, so
-// no entry is lost or doubled; returns false when the chain reaches
-// max_steps and the entry in hand is dropped.
+// The entry of a key in its own sub-table's first slot (nest 0).
+BFC_HD uint64_t subtable_entry(int64_t shard, int64_t keybody, int payload,
+                               int l_pre, int kb_bits, int c_bits,
+                               int cb_local, uint64_t* slot) {
+    *slot = subtable_slot(posk64(shard, keybody, l_pre, kb_bits), c_bits,
+                          cb_local);
+    return id_low(shard, keybody, l_pre, kb_bits, c_bits) << 15 |
+           (uint64_t)(payload & 0x3FFF);
+}
+
+// KL's and KN's insert (replaces the placement rounds of
+// cuckoo_build_device, spectrum.py:543, and cuckoo_build_local, :467):
+// swap entry e into its slot; an evicted entry moves to its other slot,
+// slot ^ alt(qlow), with its nest bit flipped, so the chain needs nothing
+// but the entries.  alt is cuckoo_alt at c_bits for the whole table
+// (cb_local 0) and subtable_alt at cb_local for a sub-table.  Every
+// exchange is atomic, so no entry is lost or doubled; returns false when
+// the chain reaches max_steps and the entry in hand is dropped.
 BFC_HD bool cuckoo_insert(uint64_t* table, uint64_t e, uint64_t slot,
-                          int c_bits, int max_steps) {
+                          int c_bits, int max_steps, int cb_local = 0) {
     for (int step = 0; step < max_steps; step++) {
         uint64_t old = BFC_ATOMIC_EXCH_U64(table + slot, e);
         if ((old & 0x3FFF) == 0) return true;
-        slot ^= cuckoo_alt(old >> 15, c_bits);
+        slot ^= cb_local ? subtable_alt(old >> 15, cb_local)
+                         : cuckoo_alt(old >> 15, c_bits);
         e = old ^ (1ull << 14);
     }
     return false;

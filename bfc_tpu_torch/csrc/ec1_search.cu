@@ -43,8 +43,11 @@ extern "C" int kd_sizes(int* heap_ent, int* stack_ent, int* n_out) {
     return 0;
 }
 
-extern "C" int kd_launch(const void* table, int k, int l_pre, int kb_bits,
-                         int c_bits, const int* iparams, int B, int L,
+// table: the replicated table, or null; subtables: the sharded table's
+// device array of 1 << db sub-table addresses, or null.
+extern "C" int kd_launch(const void* table, const void* subtables, int db,
+                         int k, int l_pre, int kb_bits, int c_bits,
+                         const int* iparams, int B, int L,
                          const void* bases, const void* q, const void* lens,
                          const void* lcov, const void* hcov, const void* isl,
                          void* ec0, void* ec1, void* heap, void* stack,
@@ -55,6 +58,8 @@ extern "C" int kd_launch(const void* table, int k, int l_pre, int kb_bits,
     P.sp.l_pre = l_pre;
     P.sp.kb_bits = kb_bits;
     P.sp.c_bits = c_bits;
+    P.sp.subtables = (const uint64_t* const*)subtables;
+    P.sp.db = db;
     P.min_cov = iparams[0];
     P.win_multi_ec = iparams[1];
     P.max_end_ext = iparams[2];

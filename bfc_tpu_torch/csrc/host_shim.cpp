@@ -44,11 +44,13 @@ void kb_combine_host(long long N, const int32_t* head, const int64_t* cum,
                    o_shard, o_keybody, o_arr, o_n, o_nh, o_fh, o_ret);
 }
 
-void kc_host(const uint64_t* table, int k, int l_pre, int kb_bits,
-             int c_bits, int min_cov, const uint8_t* bases,
-             const int32_t* lens, int B, int L, int32_t* occ, uint8_t* lcov,
-             uint8_t* hcov, int32_t* isl) {
-    SpecParams sp = {table, k, l_pre, kb_bits, c_bits};
+// table or subtables (a host array of 1 << db host addresses), as
+// kc_launch and kd_launch take them.
+void kc_host(const uint64_t* table, const uint64_t* const* subtables, int db,
+             int k, int l_pre, int kb_bits, int c_bits, int min_cov,
+             const uint8_t* bases, const int32_t* lens, int B, int L,
+             int32_t* occ, uint8_t* lcov, uint8_t* hcov, int32_t* isl) {
+    SpecParams sp = {table, k, l_pre, kb_bits, c_bits, subtables, db};
     for (int r = 0; r < B; r++) {
         size_t o = (size_t)r * L;
         kc_read(sp, min_cov, bases + o, lens[r], L, occ + o, lcov + o,
@@ -56,12 +58,12 @@ void kc_host(const uint64_t* table, int k, int l_pre, int kb_bits,
     }
 }
 
-void kd_host(const uint64_t* table, int k, int l_pre, int kb_bits,
-             int c_bits, const int* ip, int B, int L, const uint8_t* bases,
-             const uint8_t* q, const int32_t* lens, const uint8_t* lcov,
-             const uint8_t* hcov, const int32_t* isl, uint8_t* packed,
-             int32_t* out) {
-    KdParams P = {{table, k, l_pre, kb_bits, c_bits},
+void kd_host(const uint64_t* table, const uint64_t* const* subtables, int db,
+             int k, int l_pre, int kb_bits, int c_bits, const int* ip, int B,
+             int L, const uint8_t* bases, const uint8_t* q,
+             const int32_t* lens, const uint8_t* lcov, const uint8_t* hcov,
+             const int32_t* isl, uint8_t* packed, int32_t* out) {
+    KdParams P = {{table, k, l_pre, kb_bits, c_bits, subtables, db},
                   ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], ip[6],
                   ip[7], ip[8], ip[9], ip[10], ip[11]};
     KdHeapEnt* heap = new KdHeapEnt[P.heap_cap];
@@ -151,6 +153,37 @@ int kl_host(long long n, const int64_t* shard, const int64_t* keybody,
         fail += !cuckoo_insert(table, e, slot, c_bits, max_steps);
     }
     return fail;
+}
+
+// KN's inserts one key after another into a zeroed sub-table of
+// 2^(c_bits - db) entries; returns the number of keys whose chain failed.
+int kn_host(long long n, const int64_t* shard, const int64_t* keybody,
+            const int32_t* payload, int l_pre, int kb_bits, int c_bits,
+            int cb_local, uint64_t* table, int max_steps) {
+    int fail = 0;
+    for (long long i = 0; i < n; i++) {
+        uint64_t slot;
+        uint64_t e = subtable_entry(shard[i], keybody[i], payload[i], l_pre,
+                                    kb_bits, c_bits, cb_local, &slot);
+        fail += !cuckoo_insert(table, e, slot, c_bits, max_steps, cb_local);
+    }
+    return fail;
+}
+
+// The sub-table rules of each key: owner, s1, s2 and qlow.
+void subtable_slots_host(long long n, const int64_t* shard,
+                         const int64_t* keybody, int l_pre, int kb_bits,
+                         int c_bits, int db, int64_t* owner, int64_t* s1,
+                         int64_t* s2, int64_t* qlow) {
+    int cb_local = c_bits - db;
+    for (long long i = 0; i < n; i++) {
+        uint64_t pk = posk64(shard[i], keybody[i], l_pre, kb_bits);
+        uint64_t q = id_low(shard[i], keybody[i], l_pre, kb_bits, c_bits);
+        owner[i] = subtable_owner(pk, db);
+        s1[i] = (int64_t)subtable_slot(pk, c_bits, cb_local);
+        s2[i] = s1[i] ^ (int64_t)subtable_alt(q, cb_local);
+        qlow[i] = (int64_t)q;
+    }
 }
 
 // KM's pass (i) tile by tile: cnt is [R x n_tiles].

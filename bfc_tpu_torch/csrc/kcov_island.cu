@@ -25,11 +25,15 @@ __global__ void kc_kernel(SpecParams sp, int min_cov, const uint8_t* bases,
             isl + 3 * (size_t)r);
 }
 
-extern "C" int kc_launch(const void* table, int k, int l_pre, int kb_bits,
-                         int c_bits, int min_cov, const void* bases,
-                         const void* lens, int B, int L, void* occ,
-                         void* lcov, void* hcov, void* isl, void* stream) {
-    SpecParams sp = {(const uint64_t*)table, k, l_pre, kb_bits, c_bits};
+// table: the replicated table, or null; subtables: the sharded table's
+// device array of 1 << db sub-table addresses, or null.
+extern "C" int kc_launch(const void* table, const void* subtables, int db,
+                         int k, int l_pre, int kb_bits, int c_bits,
+                         int min_cov, const void* bases, const void* lens,
+                         int B, int L, void* occ, void* lcov, void* hcov,
+                         void* isl, void* stream) {
+    SpecParams sp = {(const uint64_t*)table, k, l_pre, kb_bits, c_bits,
+                     (const uint64_t* const*)subtables, db};
     int threads = 128;
     int blocks = (B + threads - 1) / threads;
     if (blocks > 0)

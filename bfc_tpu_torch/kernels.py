@@ -86,10 +86,11 @@ KB = Kernel("run_combine", {
     "kb_combine_launch": [_LL] + [_P] * 17,
 })
 KC = Kernel("kcov_island", {
-    "kc_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "kc_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                  _P, _P, _P],
 })
 KD = Kernel("ec1_search", {
-    "kd_launch": [_P, _I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
+    "kd_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
     "kd_sizes": [_P, _P, _P],
 })
 KE = Kernel("pack_pull", {
@@ -120,8 +121,17 @@ KM = Kernel("route_rows", {
     "km_count_launch": [_LL, _I, _P, _P, _I, _I, _LL, _P, _P],
     "km_scatter_launch": [_LL, _I, _P, _P, _I, _I, _LL] + [_P] * 11,
 })
+KN = Kernel("cuckoo_build_local", {
+    "kn_launch": [_LL, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "kn_handle_bytes": [_P],
+    "kn_alloc": [_I, _LL, _P],
+    "kn_free": [_I, _P],
+    "kn_export": [_I, _P, _P],
+    "kn_open": [_I, _P, _P],
+    "kn_close": [_I, _P],
+})
 KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH, KI, KJ, KK,
-                               KL, KM)}
+                               KL, KM, KN)}
 
 
 def reset_launches() -> None:

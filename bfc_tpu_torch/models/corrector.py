@@ -100,11 +100,12 @@ class Corrector:
         self.opt = opt
         self.ds = ds
         self.caps = (heap_cap, stack_cap)
-        self.device = ds.table.table.device
+        self.device = ds.table.device
         self.n_fallback = 0
         self.t_device = 0.0  # host seconds in device_step (KC + KD + copies)
         # host copy of the table for the scalar fallback, made at the
-        # first overflow
+        # first overflow; a sharded table's sub-tables are pulled through
+        # this rank's mappings of its peers', with no collective
         self._probe: Optional[IntProbe] = None
 
     def device_step(self, bases0: np.ndarray, rawq0: np.ndarray,

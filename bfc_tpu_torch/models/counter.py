@@ -9,12 +9,14 @@ first-occurrence adjudication and the cuckoo table build run
 int64 tensor.  With the device finalize (BFC_TPU_DEVICE_FINALIZE=1, or
 device_finalize=True) the folded run stays on the card and KJ, KF or KI,
 KK and KL finalize it there.  Reproduces the reference counting pass
-(count.c:127-157) under sequential stream order (bfc -t1).
+(count.c:127-157) under sequential stream order (bfc -t1).  A spectrum
+is dumped to and restored from bfc's -d/-r file format (htab.c:129-176).
 """
 
 from __future__ import annotations
 
 import os
+import struct
 import time
 from typing import List, Optional, Tuple
 
@@ -65,11 +67,83 @@ class DeviceSpectrum:
         # the counting pass that built it (count_file_device), else 0
         self.n_reads = 0
         self.n_aggregated = 0
+        # a sharded table's entries on each rank (parallel/mesh.py)
+        self.entries_by_rank = None
 
     def compact_entries(self):
         if callable(self._compact):
             self._compact = self._compact()
         return self._compact
+
+    def dump(self, fn: str) -> None:
+        """Write the bfc -d dump of the entries (bfc_tpu's DeviceSpectrum.
+        dump, counter.py:103-116)."""
+        write_dump(fn, self.k, self.l_pre, *self.compact_entries())
+
+
+def _kh_n_buckets(size: np.ndarray) -> np.ndarray:
+    """khash's bucket count for each shard size (bfc_tpu's counter.py:
+    _kh_n_buckets): the power of two >= int(size / 0.77 + 0.5) + 1, at
+    least 4; 0 for an empty shard."""
+    need = (size / 0.77 + 0.5).astype(np.int64) + 1
+    n = np.full(size.shape, 4, np.int64)
+    while bool((n < need).any()):
+        n = np.where(n < need, n << 1, n)
+    return np.where(size == 0, 0, n)
+
+
+def write_dump(fn: str, k: int, l_pre: int, shard, keybody, payload) -> None:
+    """The bfc -d binary format (htab.c:129-146): {k, l_pre}, then for each
+    of the 2^l_pre shards {n_buckets, size} and its size u64 keys
+    keybody << 14 | payload.  The entries are sorted by shard."""
+    counts = np.bincount(np.asarray(shard, np.int64), minlength=1 << l_pre)
+    head = (_kh_n_buckets(counts).astype(np.uint64)
+            | (counts.astype(np.uint64) << np.uint64(32)))
+    at = np.arange(1 << l_pre) + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    words = np.empty((len(counts) + len(shard),), np.uint64)
+    is_key = np.ones(words.shape, bool)
+    is_key[at] = False
+    words[at] = head
+    words[is_key] = ((np.asarray(keybody, np.uint64) << np.uint64(14))
+                     | np.asarray(payload, np.uint64))
+    with open(fn, "wb") as f:
+        f.write(struct.pack("<II", k, l_pre))
+        f.write(words.astype("<u8").tobytes())
+
+
+def read_dump(fn: str):
+    """A bfc -d dump (htab.c:151-176): (k, l_pre, shard u32, keybody u64,
+    payload u32), sorted by (shard, keybody) as bfc_tpu's
+    restore_spectrum (counter.py:192-208) sorts them."""
+    with open(fn, "rb") as f:
+        k, l_pre = struct.unpack("<II", f.read(8))
+        words = np.frombuffer(f.read(), "<u8").astype(np.uint64)
+    sizes = np.zeros((1 << l_pre,), np.int64)
+    at = np.zeros((1 << l_pre,), np.int64)
+    i = 0
+    for s in range(1 << l_pre):
+        at[s] = i
+        sizes[s] = int(words[i]) >> 32
+        i += 1 + int(sizes[s])
+    if i != len(words):
+        raise ValueError(f"{fn}: {len(words)} words, the headers span {i}")
+    is_key = np.ones(words.shape, bool)
+    is_key[at] = False
+    keys = words[is_key]
+    shard = np.repeat(np.arange(1 << l_pre, dtype=np.uint32), sizes)
+    keybody = keys >> np.uint64(14)
+    payload = (keys & np.uint64(0x3FFF)).astype(np.uint32)
+    order = np.lexsort((keybody, shard))
+    return k, l_pre, shard[order], keybody[order], payload[order]
+
+
+def restore_spectrum(fn: str, device) -> DeviceSpectrum:
+    """Load a bfc -r dump into a DeviceSpectrum (bfc_tpu's
+    restore_spectrum), its table built as spectrum_from_compact builds
+    it; its verdict reads "restored"."""
+    k, l_pre, shard, keybody, payload = read_dump(fn)
+    return spectrum_from_compact(shard, keybody, payload, k, l_pre, device,
+                                 verdict="restored")
 
 
 def device_finalize_on(device_finalize: Optional[bool] = None) -> bool:
@@ -89,6 +163,17 @@ def table_c_bits(n: int, k: int, l_pre: int, c_bits_hint: int = 0) -> int:
     kb_bits = kops.keybody_bits(k, l_pre)
     return max(8, int(np.ceil(np.log2(max(n, 1) * 2.5 + 1))), c_bits_hint,
                l_pre + kb_bits - 49)
+
+
+def subtable_bits(max_local: int, k: int, l_pre: int, db: int) -> int:
+    """cb_local of a sharded table of 2^db sub-tables whose fullest holds
+    max_local entries: bfc_tpu's _finalize_sharded rule (load <= 0.4,
+    mesh.py:644-646), raised as table_c_bits raises c_bits, so that qlow
+    (l_pre + kb_bits - db - cb_local bits) fits the entry's 49 bits for
+    every k and no 30-bit cap applies."""
+    kb_bits = kops.keybody_bits(k, l_pre)
+    return max(8, int(np.ceil(np.log2(max(max_local, 1) * 2.5 + 1))),
+               l_pre + kb_bits - 49 - db)
 
 
 def spectrum_from_compact(shard: np.ndarray, keybody: np.ndarray,

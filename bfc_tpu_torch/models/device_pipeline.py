@@ -10,6 +10,7 @@ native formatter.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -18,11 +19,13 @@ import torch
 
 from ..io.fastq import Read, format_corrected, pack_stats
 from ..io.writer import OutputWriter
+from ..ops.spectrum import ShardedTable
 from ..opts import Opts
-from ..parallel import comm
+from ..parallel import comm, peer
 from ..utils.log import log
 from .corrector import BatchResult, Corrector
-from .counter import DeviceSpectrum, count_file_device, device_finalize_on
+from .counter import (DeviceSpectrum, count_file_device, device_finalize_on,
+                      restore_spectrum)
 from .trimmer import Trimmer, count_file_filter_device, popcount
 
 
@@ -147,11 +150,21 @@ def _emit_rb_python(rb, res: BatchResult, opt: Opts, out, a: int = 0) -> None:
         format_corrected(r, opt.no_qual, False, opt.discard, out)
 
 
+def shard_table_on(shard_table: Optional[bool] = None) -> bool:
+    """The table layout of a mesh: the argument, else
+    BFC_TPU_SHARD_TABLE=1 (bfc_tpu's device_pipeline.py:334-335)."""
+    if shard_table is None:
+        return os.environ.get("BFC_TPU_SHARD_TABLE", "0") == "1"
+    return bool(shard_table)
+
+
 def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                no_ec: bool = False, batch_reads: int = 8192,
                count_batch_reads: int = 16384, sink=None,
                device=None, report: Optional[dict] = None,
-               device_finalize: Optional[bool] = None) -> str:
+               device_finalize: Optional[bool] = None,
+               in_hash: Optional[str] = None, out_hash: Optional[str] = None,
+               shard_table: Optional[bool] = None) -> str:
     """Count, then correct (or, with opt.filter_mode, trim); returns the
     output text (reference stdout).
 
@@ -167,14 +180,27 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     fallback; for trim the reads kept and dropped, the k-mers kept, the
     set bits of the Bloom filter and the filter itself.
 
+    in_hash restores the spectrum from a bfc -r dump instead of
+    counting (opt.k then becomes the dump's k); out_hash dumps it (-d).
+    Trim mode ignores both, as bfc_tpu does.  The report's table is
+    "sharded" or "replicated", beside its c_bits; dump_s is the -d
+    write's wall, in neither phase.
+
     In a rank of a torch.distributed process group it runs the
     multi-device path (bfc_tpu's mesh_devices,
     device_pipeline.py:340-380): prefix-sharded counting, the distributed
     finalize (always on the devices) and data-parallel correction, with
-    rank 0 writing the output.  The report then also holds the world
-    size, the backend and every rank's kernel launch counts, and the
-    fallback count of all ranks.  Trim mode ignores the mesh, as bfc_tpu
-    does: rank 0 trims on its device and the other ranks return."""
+    rank 0 writing the output.  With shard_table (default:
+    BFC_TPU_SHARD_TABLE=1) and a power-of-two number of ranks, each rank
+    holds only its sub-table of a sharded table, which the others map
+    (parallel/peer.py), unless no_ec; a restored spectrum is sharded the
+    same way.  The report then also holds the world size, the backend,
+    every rank's kernel launch counts and, with the sharded table,
+    cb_local and each rank's sub-table entries, and the fallback count
+    of all ranks.  A sharded table is released when correction ends
+    (peer.release): the report's spectrum then keeps its entries and
+    histograms, not its sub-tables.  Trim mode ignores the mesh, as bfc_tpu does: rank 0
+    trims on its device and the other ranks return."""
     dev = resolve_device(device)
     mesh = comm.active()
     if opt.filter_mode and mesh:
@@ -202,31 +228,51 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                           reads_dropped=trimmer.n_reads - trimmer.n_kept,
                           n_set_bits=popcount(bloom.words), bloom=bloom)
     else:
-        if mesh:
-            from ..parallel import mesh as pmesh
+        from ..parallel import mesh as pmesh
 
+        sharded = mesh and shard_table_on(shard_table) and not no_ec
+        if in_hash is not None:
+            ds = (pmesh.restore_mesh(in_hash, dev, sharded) if mesh
+                  else restore_spectrum(in_hash, dev))
+            opt.k = ds.k
+        elif mesh:
             R = comm.size()  # each rank takes an equal share of a batch
             ds = pmesh.count_file_mesh(
                 count_fn, opt, dev,
-                batch_reads=-(-count_batch_reads // R) * R)
+                batch_reads=-(-count_batch_reads // R) * R,
+                shard_table=sharded)
         else:
             ds = count_file_device(count_fn, opt, dev,
                                    batch_reads=count_batch_reads,
                                    device_finalize=on)
         _sync(dev)
         t1 = time.time()
+        if out_hash is not None:
+            if mesh:
+                pmesh.dump_mesh(ds, out_hash)
+            else:
+                ds.dump(out_hash)
+        t2 = time.time()
         corr = None
         if not no_ec:
             corr = correct_file_device(next_fn, opt, ds, out,
                                        batch_reads=batch_reads, mesh=mesh)
             _sync(dev)
+        sharded = isinstance(ds.table, ShardedTable)
+        if sharded:
+            peer.release(ds.table)
         n_fallback = corr.n_fallback if corr is not None else 0
         if report is not None:
             report.update(
                 finalize="device" if on else "host", verdict=ds.verdict,
-                count_s=t1 - t0, correct_s=time.time() - t1,
+                count_s=t1 - t0, dump_s=t2 - t1, correct_s=time.time() - t2,
                 n_reads=ds.n_reads, n_aggregated=ds.n_aggregated,
-                n_kept=ds.n_entries, spectrum=ds, n_fallback=n_fallback)
+                n_kept=ds.n_entries, spectrum=ds, n_fallback=n_fallback,
+                table="sharded" if sharded else "replicated",
+                c_bits=ds.c_bits)
+            if sharded:
+                report.update(cb_local=ds.table.cb_local,
+                              entries_by_rank=ds.entries_by_rank)
         if mesh:
             _report_ranks(report, n_fallback)
     if sink is not None:

@@ -4,7 +4,9 @@ Counterpart of bfc_tpu/ops/annotate.py:kcov_batch (:67) and
 best_island_batch (:101): for each read, the payload of every k-mer
 (occ), the 6-bit solid and solid-and-high coverage of each base (lcov,
 hcov) and the longest run of solid k-mer ends (bfc_ec_kcov and
-bfc_ec_best_island, correct.c:96-130).
+bfc_ec_best_island, correct.c:96-130).  The table is a SpecTable or a
+ShardedTable; KC probes a sharded table's owner sub-tables directly
+(annotate.py:52-53 routed each lookup with sharded_cuckoo_lookup).
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ import torch
 
 from .. import kernels
 from .kmer import append_base
-from .spectrum import SpecTable, kmer_occ_plain
+from . import spectrum as spec
+from .spectrum import kmer_occ_plain
 
 
-def kcov_island_plain(t: SpecTable, bases, lens, min_cov: int):
+def kcov_island_plain(t, bases, lens, min_cov: int):
     """Plain version of KC: all reads at once, one position a step."""
     B, L = bases.shape
     k = t.k
@@ -62,7 +65,7 @@ def kcov_island_plain(t: SpecTable, bases, lens, min_cov: int):
             isl.to(torch.int32))
 
 
-def kcov_island(t: SpecTable, bases, lens, min_cov: int):
+def kcov_island(t, bases, lens, min_cov: int):
     """Coverage annotation of a padded read batch (kernel KC).
 
     bases u8 [B, L], lens i32 [B].  Returns occ i32 [B, L] (-1 where no
@@ -72,14 +75,14 @@ def kcov_island(t: SpecTable, bases, lens, min_cov: int):
     dev = bases.device
     kernels.check(bases, "bases", torch.uint8, (B, L), dev)
     kernels.check(lens, "lens", torch.int32, (B,), dev)
-    kernels.check(t.table, "table", torch.int64, (1 << t.c_bits,), dev)
+    spec.check_table(t, dev)
     if dev.type == "cpu":
         return kcov_island_plain(t, bases, lens, min_cov)
     occ = torch.empty((B, L), dtype=torch.int32, device=dev)
     lcov = torch.empty((B, L), dtype=torch.uint8, device=dev)
     hcov = torch.empty_like(lcov)
     isl = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    kernels.KC.launch("kc_launch", t.table.data_ptr(), t.k, t.l_pre,
+    kernels.KC.launch("kc_launch", *spec.probe_args(t), t.k, t.l_pre,
                       t.kb_bits, t.c_bits, min_cov, bases.data_ptr(),
                       lens.data_ptr(), B, L, occ.data_ptr(), lcov.data_ptr(),
                       hcov.data_ptr(), isl.data_ptr())

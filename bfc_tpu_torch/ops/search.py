@@ -9,7 +9,9 @@ The plain version is a loop over reads that runs the scalar model's own
 ec_first_kmer / ec_greedy_k / ec1dir on each read, probing the same
 cuckoo table: a best-first search with a heap per read has no vectorized
 torch form short of rebuilding bfc_tpu's lockstep machinery, and the
-scalar model is the semantic spec the kernel translates.
+scalar model is the semantic spec the kernel translates.  The table is a
+SpecTable or a ShardedTable (search.py:420-421 looked a sharded table up
+through sharded_cuckoo_lookup; KD probes its owner sub-tables directly).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 from .. import kernels
 from ..models import refmodel as M
 from ..opts import Opts
-from .spectrum import IntProbe, SpecTable
+from . import spectrum as spec
+from .spectrum import IntProbe
 
 HEAP_CAP = 128    # the heap holds at most max_heap + 4 = 104 entries
 STACK_CAP = 4096  # search steps of one direction; beyond: scalar fallback
@@ -121,7 +124,7 @@ def ec1_read_plain(opt: Opts, probe, mode: int, s: List[M.EcBase],
     return out, final
 
 
-def ec1_search_plain(t: SpecTable, opt: Opts, mode: int, bases, q, lens,
+def ec1_search_plain(t, opt: Opts, mode: int, bases, q, lens,
                      lcov, hcov, isl, heap_cap: int = HEAP_CAP,
                      stack_cap: int = STACK_CAP):
     """Plain version of KD: the scalar model read by read."""
@@ -149,7 +152,7 @@ def ec1_search_plain(t: SpecTable, opt: Opts, mode: int, bases, q, lens,
     return torch.from_numpy(packed).to(dev), torch.from_numpy(out).to(dev)
 
 
-def ec1_search(t: SpecTable, opt: Opts, mode: int, bases, q, lens, lcov,
+def ec1_search(t, opt: Opts, mode: int, bases, q, lens, lcov,
                hcov, isl, heap_cap: int = HEAP_CAP,
                stack_cap: int = STACK_CAP):
     """Correct a padded read batch (kernel KD).
@@ -168,7 +171,7 @@ def ec1_search(t: SpecTable, opt: Opts, mode: int, bases, q, lens, lcov,
     kernels.check(lcov, "lcov", torch.uint8, (B, L), dev)
     kernels.check(hcov, "hcov", torch.uint8, (B, L), dev)
     kernels.check(isl, "isl", torch.int32, (B, 3), dev)
-    kernels.check(t.table, "table", torch.int64, (1 << t.c_bits,), dev)
+    spec.check_table(t, dev)
     if dev.type == "cpu":
         return ec1_search_plain(t, opt, mode, bases, q, lens, lcov, hcov,
                                 isl, heap_cap, stack_cap)
@@ -189,7 +192,7 @@ def ec1_search(t: SpecTable, opt: Opts, mode: int, bases, q, lens, lcov,
     out = torch.empty((B, N_OUT), dtype=torch.int32, device=dev)
     ip = _iparams(opt, mode, heap_cap, stack_cap)
     kernels.KD.launch(
-        "kd_launch", t.table.data_ptr(), t.k, t.l_pre, t.kb_bits, t.c_bits,
+        "kd_launch", *spec.probe_args(t), t.k, t.l_pre, t.kb_bits, t.c_bits,
         ip.ctypes.data, B, L,
         *(a.data_ptr() for a in (bases, q, lens, lcov, hcov, isl, ec0, ec1,
                                  heap, stack, packed, out)))

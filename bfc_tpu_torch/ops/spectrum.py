@@ -11,17 +11,23 @@ csrc/cuckoo.cuh, inlined into kernels KC and KD; this module holds its
 plain versions (vectorized, and per k-mer in Python integers for the
 plain search) and the helpers the host table build shares.
 
+ShardedTable is the prefix-sharded layout (ShardedCuckoo, :316): one
+sub-table a rank, built by kernel KN (cuckoo_build_local, :467) and read
+by cuckoo_probe_sharded inside KC and KD, which replaces
+sharded_cuckoo_lookup (:368).
+
 bloom_probe_bits is the plain twin of csrc/bloom.cuh (spectrum.py:184).
 adjudicate_sketch is kernel KF (spectrum.py:adjudicate_sketch, :843, with
 the keep rule of trimmer.py:filter_keep_rets, :81) and
 adjudicate_first_occurrence kernel KI (:217); adjudicate chooses between
-them as bfc_tpu does.  finalize_counts is kernel KK (:868) and
-cuckoo_build kernel KL (cuckoo_build_device, :543).
+them as bfc_tpu does.  finalize_counts is kernel KK (:868),
+cuckoo_build kernel KL (cuckoo_build_device, :543) and cuckoo_build_local
+kernel KN (:467).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,6 +52,90 @@ class SpecTable(NamedTuple):
     l_pre: int
     kb_bits: int
     c_bits: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+
+class ShardedTable(NamedTuple):
+    """The prefix-sharded spectrum (bfc_tpu's ShardedCuckoo, spectrum.py:
+    316-343): R = 2^db independent cuckoo sub-tables of 2^cb_local
+    entries, one a rank.  Sub-table r holds the keys whose 64-bit
+    position key pk has r in its top db bits; c_bits = db + cb_local is
+    the global width that s1 and qlow come from: s1 is the cb_local bits
+    of pk below the owner's, qlow the identity bits below the top c_bits,
+    and s2 = s1 ^ subtable_alt(qlow, cb_local).  Entries are SpecTable's.
+
+    subtables holds R int64 tensors [1 << cb_local]: on the CPU the
+    ranks' sub-tables all-gathered; on the card views of each rank's own
+    allocation, the peers' mapped through CUDA IPC (parallel/peer.py).
+    ptrs is the int64 [R] device array of their addresses that KC and KD
+    read (None on the CPU); buffers holds the allocations behind the
+    views, which peer.release closes and frees."""
+
+    subtables: Tuple[torch.Tensor, ...]
+    ptrs: Optional[torch.Tensor]
+    k: int
+    l_pre: int
+    kb_bits: int
+    c_bits: int
+    db: int
+    buffers: tuple = ()
+
+    @property
+    def cb_local(self) -> int:
+        return self.c_bits - self.db
+
+    @property
+    def device(self) -> torch.device:
+        return self.subtables[0].device if self.ptrs is None \
+            else self.ptrs.device
+
+
+def sharded_table(subtables, k: int, l_pre: int, kb_bits: int, db: int,
+                  buffers: tuple = (), device=None) -> ShardedTable:
+    """A ShardedTable over R = 2^db sub-tables of one size.  On the card
+    (device, else the first sub-table's) the address array is built from
+    the sub-tables; a peer's view may lie on the peer's card, and
+    buffers, where given, hold the addresses mapped in this process."""
+    subtables = tuple(subtables)
+    if len(subtables) != 1 << db:
+        raise ValueError(f"{len(subtables)} sub-tables for db {db}")
+    cb_local = subtables[0].shape[0].bit_length() - 1
+    dev = subtables[0].device if device is None else torch.device(device)
+    for t in subtables:
+        kernels.check(t, "sub-table", torch.int64, (1 << cb_local,),
+                      dev if dev.type == "cpu" else t.device)
+    ptrs = None
+    if dev.type == "cuda":
+        ptrs = torch.tensor([t.data_ptr() for t in subtables],
+                            dtype=torch.int64, device=dev)
+    return ShardedTable(subtables, ptrs, k, l_pre, kb_bits, db + cb_local,
+                        db, buffers)
+
+
+def check_table(t, dev) -> None:
+    """Raise unless the table t serves probes on dev: a SpecTable on dev,
+    a ShardedTable with its address array on dev (its peers' sub-tables
+    may lie on their cards) or, on the CPU, its sub-tables there."""
+    if isinstance(t, ShardedTable):
+        if dev.type == "cpu":
+            for sub in t.subtables:
+                kernels.check(sub, "sub-table", torch.int64,
+                              (1 << t.cb_local,), dev)
+        else:
+            kernels.check(t.ptrs, "ptrs", torch.int64, (1 << t.db,), dev)
+        return
+    kernels.check(t.table, "table", torch.int64, (1 << t.c_bits,), dev)
+
+
+def probe_args(t):
+    """(table, subtables, db) as KC's and KD's launchers take them: the
+    replicated table's address, or the sharded table's address array."""
+    if isinstance(t, ShardedTable):
+        return None, t.ptrs.data_ptr(), t.db
+    return t.table.data_ptr(), None, 0
 
 
 def cuckoo_alt_np(qlow, c_bits: int):
@@ -86,15 +176,32 @@ def cuckoo_alt(qlow, c_bits: int):
     return h >> (32 - c_bits)
 
 
-def cuckoo_lookup_plain(t: SpecTable, shard, keybody):
-    """Payload (int64, -1 absent) of each (shard, keybody) int64 query."""
-    c_bits = t.c_bits
-    s1 = srl(_posk64(shard, keybody, t.l_pre, t.kb_bits), 64 - c_bits)
-    qlow = _id_low(shard, keybody, t.l_pre, t.kb_bits, c_bits)
-    s2 = s1 ^ cuckoo_alt(qlow, c_bits)
-    e1 = t.table[s1]
-    e2 = t.table[s2]
+def subtable_alt(qlow, cb_local: int):
+    """Alternate-slot offset in a sub-table: the 64-bit multiplicative
+    hash at every cb_local (spectrum.py:440), unlike cuckoo_alt."""
+    return srl(qlow * _to_i64(_CUCKOO_GOLD), 64 - cb_local)
 
+
+def subtable_owner(shard, keybody, l_pre: int, kb_bits: int, db: int):
+    """The sub-table, of 2^db, that holds each int64 (shard, keybody)
+    key: the top db bits of its position key."""
+    pk = _posk64(shard, keybody, l_pre, kb_bits)
+    return srl(pk, 64 - db) if db else torch.zeros_like(pk)
+
+
+def subtable_slots(shard, keybody, l_pre: int, kb_bits: int, c_bits: int,
+                   db: int):
+    """(owner, s1, s2, qlow) of int64 (shard, keybody) keys in a table of
+    2^db sub-tables of 2^(c_bits - db) entries (csrc/cuckoo.cuh)."""
+    pk = _posk64(shard, keybody, l_pre, kb_bits)
+    cb_local = c_bits - db
+    owner = subtable_owner(shard, keybody, l_pre, kb_bits, db)
+    s1 = srl(pk, 64 - c_bits) & ((1 << cb_local) - 1)
+    qlow = _id_low(shard, keybody, l_pre, kb_bits, c_bits)
+    return owner, s1, s1 ^ subtable_alt(qlow, cb_local), qlow
+
+
+def _pick(e1, e2, qlow):
     def match(e, nest):
         return ((e & 0x3FFF) != 0) & (((e >> 14) & 1) == nest) \
             & (srl(e, 15) == qlow)
@@ -103,7 +210,27 @@ def cuckoo_lookup_plain(t: SpecTable, shard, keybody):
                        torch.where(match(e2, 1), e2 & 0x3FFF, -1))
 
 
-def kmer_occ_plain(t: SpecTable, x0, x1, x2, x3):
+def cuckoo_lookup_plain(t, shard, keybody):
+    """Payload (int64, -1 absent) of each (shard, keybody) int64 query, in
+    a SpecTable or, from its owner's sub-table, a ShardedTable."""
+    if isinstance(t, ShardedTable):
+        owner, s1, s2, qlow = subtable_slots(shard, keybody, t.l_pre,
+                                             t.kb_bits, t.c_bits, t.db)
+        e1 = torch.empty_like(s1)
+        e2 = torch.empty_like(s2)
+        for r, sub in enumerate(t.subtables):
+            sel = owner == r
+            e1[sel] = sub[s1[sel]]
+            e2[sel] = sub[s2[sel]]
+        return _pick(e1, e2, qlow)
+    c_bits = t.c_bits
+    s1 = srl(_posk64(shard, keybody, t.l_pre, t.kb_bits), 64 - c_bits)
+    qlow = _id_low(shard, keybody, t.l_pre, t.kb_bits, c_bits)
+    s2 = s1 ^ cuckoo_alt(qlow, c_bits)
+    return _pick(t.table[s1], t.table[s2], qlow)
+
+
+def kmer_occ_plain(t, x0, x1, x2, x3):
     """Payload of each 4-plane k-mer (vectorized CountHash.kmer_occ)."""
     _, h0, h1 = canonical_hash(x0, x1, x2, x3, t.k)
     shard, keybody = shard_and_keybody(h0, h1, t.k, t.l_pre)
@@ -117,16 +244,19 @@ def _to_i64(v: int) -> int:
 class IntProbe:
     """CountHash-shaped view of a cuckoo table for the per-read plain
     search: kmer_occ(x) on Python-integer planes, probing a host copy of
-    the table with the same arithmetic as cuckoo_probe.  n_probes counts
-    the kmer_occ calls."""
+    the table with the same arithmetic as cuckoo_probe (a ShardedTable:
+    of every sub-table, as cuckoo_probe_sharded).  n_probes counts the
+    kmer_occ calls."""
 
-    def __init__(self, t: SpecTable):
+    def __init__(self, t):
         self.n_probes = 0
         self.k = t.k
         self.l_pre = t.l_pre
         self.kb_bits = t.kb_bits
         self.c_bits = t.c_bits
-        self.entries = t.table.cpu().numpy().view("uint64")
+        self.db = t.db if isinstance(t, ShardedTable) else None
+        subs = t.subtables if self.db is not None else (t.table,)
+        self.entries = [s.cpu().numpy().view("uint64") for s in subs]
 
     def get(self, h0: int, h1: int) -> int:
         k, l_pre = self.k, self.l_pre
@@ -155,13 +285,20 @@ class IntProbe:
             qlow = keybody & ((1 << nbits) - 1)
         else:
             qlow = ((shard & ((1 << (nbits - kb_bits)) - 1)) << kb_bits) | keybody
-        if c_bits > 32:
+        entries = self.entries[0]
+        if self.db is not None:
+            cb_local = c_bits - self.db
+            if self.db:
+                entries = self.entries[pk >> (64 - self.db)]
+            s1 &= (1 << cb_local) - 1
+            alt = ((qlow * _CUCKOO_GOLD) & _U64) >> (64 - cb_local)
+        elif c_bits > 32:
             alt = ((qlow * _CUCKOO_GOLD) & _U64) >> (64 - c_bits)
         else:
             alt = ((((qlow & 0xFFFFFFFF) * _ALT_C1) ^ ((qlow >> 32) * _ALT_C2))
                    & 0xFFFFFFFF) >> (32 - c_bits)
         for slot, nest in ((s1, 0), (s1 ^ alt, 1)):
-            e = int(self.entries[slot])
+            e = int(entries[slot])
             if e & 0x3FFF and (e >> 14) & 1 == nest and e >> 15 == qlow:
                 return e & 0x3FFF
         return -1
@@ -391,20 +528,16 @@ def finalize_counts(n, n_high, first_high, fp):
 _I64_MIN = -(1 << 63)
 
 
-def cuckoo_build_plain(shard, keybody, payload, k: int, l_pre: int,
-                       kb_bits: int, c_bits: int, max_rounds: int = 256):
-    """Plain version of KL: cuckoo_build_device's synchronous rounds
-    (spectrum.py:543-605).  Every unplaced key claims its current slot; a
-    scatter-max of a per-round priority picks each slot's winner; losers
-    and evicted keys turn to their other slot.  u64 priorities ride in
-    int64 with the sign bit flipped, so the signed amax orders them as
-    unsigned.  Rows with payload 0 are skipped."""
-    S = 1 << c_bits
-    n = shard.shape[0]
-    dev = shard.device
-    s1 = srl(_posk64(shard, keybody, l_pre, kb_bits), 64 - c_bits)
-    qlow = _id_low(shard, keybody, l_pre, kb_bits, c_bits)
-    s2 = s1 ^ cuckoo_alt(qlow, c_bits)
+def _place_plain(s1, s2, qlow, payload, S: int, max_rounds: int):
+    """The synchronous placement rounds of cuckoo_build_device (spectrum.
+    py:543-605) and cuckoo_build_local (:467-538) over a table of S slots.
+    Every unplaced key claims its current slot; a scatter-max of a
+    per-round priority picks each slot's winner; losers and evicted keys
+    turn to their other slot.  u64 priorities ride in int64 with the sign
+    bit flipped, so the signed amax orders them as unsigned.  Rows with
+    payload 0 are skipped.  Returns (table, ok)."""
+    n = s1.shape[0]
+    dev = s1.device
     payload = payload.to(torch.int64)
     valid = payload != 0
     ids = torch.arange(n, dtype=torch.int64, device=dev)
@@ -431,6 +564,68 @@ def cuckoo_build_plain(shard, keybody, payload, k: int, l_pre: int,
     table = torch.zeros((S,), dtype=torch.int64, device=dev)
     table[cur[placed]] = ((qlow << 15) | (pref << 14) | payload)[placed]
     return table, ok
+
+
+def cuckoo_build_plain(shard, keybody, payload, k: int, l_pre: int,
+                       kb_bits: int, c_bits: int, max_rounds: int = 256):
+    """Plain version of KL: cuckoo_build_device's synchronous rounds
+    (spectrum.py:543-605)."""
+    s1 = srl(_posk64(shard, keybody, l_pre, kb_bits), 64 - c_bits)
+    qlow = _id_low(shard, keybody, l_pre, kb_bits, c_bits)
+    return _place_plain(s1, s1 ^ cuckoo_alt(qlow, c_bits), qlow, payload,
+                        1 << c_bits, max_rounds)
+
+
+def cuckoo_build_local_plain(shard, keybody, payload, l_pre: int,
+                             kb_bits: int, c_bits: int, db: int,
+                             max_rounds: int = 256):
+    """Plain version of KN: cuckoo_build_local's rounds (spectrum.py:
+    467-538) over one sub-table of 2^(c_bits - db) slots."""
+    _, s1, s2, qlow = subtable_slots(shard, keybody, l_pre, kb_bits, c_bits,
+                                     db)
+    return _place_plain(s1, s2, qlow, payload, 1 << (c_bits - db),
+                        max_rounds)
+
+
+def cuckoo_build_local(shard, keybody, payload, l_pre: int, kb_bits: int,
+                       c_bits: int, db: int, out=None):
+    """One rank's sub-table of a ShardedTable (kernel KN): (int64
+    [1 << (c_bits - db)] of u64 entries, ok).  The keys must be the
+    rank's own (their owner under the sub-table rule); ok is False when a
+    key could not be placed, and every rank then builds again one bit
+    larger.  out, where given, is the int64 tensor of that size to build
+    into (the exportable allocation of parallel/peer.py); it is zeroed
+    first.  shard, keybody int64 [n]; payload int32 [n], non-zero.  The
+    layout is not deterministic on the card; lookups are."""
+    n = shard.shape[0]
+    dev = shard.device
+    cb_local = c_bits - db
+    kernels.check(shard, "shard", torch.int64, (n,), dev)
+    kernels.check(keybody, "keybody", torch.int64, (n,), dev)
+    kernels.check(payload, "payload", torch.int32, (n,), dev)
+    if out is not None:
+        kernels.check(out, "out", torch.int64, (1 << cb_local,), dev)
+    if l_pre + kb_bits - c_bits > 49:
+        raise ValueError(f"c_bits {c_bits}: qlow does not fit the entry")
+    if dev.type == "cpu":
+        table, ok = cuckoo_build_local_plain(shard, keybody, payload, l_pre,
+                                             kb_bits, c_bits, db)
+        if out is not None:
+            table = out.copy_(table)
+        return table, ok
+    if out is None:
+        need = 8 << cb_local
+        free = kernels.device_free_bytes(dev)
+        if need > free:
+            raise RuntimeError(f"a sub-table of 2^{cb_local} entries needs "
+                               f"{need} device bytes, {free} free")
+        out = torch.empty((1 << cb_local,), dtype=torch.int64, device=dev)
+    table = out.zero_()
+    fail = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kernels.KN.launch("kn_launch", n, shard.data_ptr(), keybody.data_ptr(),
+                      payload.data_ptr(), l_pre, kb_bits, c_bits, cb_local,
+                      table.data_ptr(), fail.data_ptr())
+    return table, int(fail) == 0
 
 
 def cuckoo_build(shard, keybody, payload, k: int, l_pre: int, kb_bits: int,

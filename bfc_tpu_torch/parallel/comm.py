@@ -87,7 +87,13 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _lengths(n: int) -> List[int]:
+def barrier() -> None:
+    """Wait until every rank has come here (over the side group)."""
+    dist.barrier(group=side_group())
+
+
+def lengths(n: int) -> List[int]:
+    """Every rank's n, in rank order."""
     t = torch.tensor([n], dtype=torch.int64)
     out = [torch.empty_like(t) for _ in range(size())]
     dist.all_gather(out, t, group=side_group())
@@ -107,20 +113,37 @@ def _gather_padded(t: torch.Tensor, lens: List[int], group):
 def all_gather_bytes(b: np.ndarray) -> List[np.ndarray]:
     """Every rank's uint8 array, in rank order, on every rank."""
     t = torch.from_numpy(np.array(b, np.uint8))
-    return [p.numpy() for p in _gather_padded(t, _lengths(len(b)),
+    return [p.numpy() for p in _gather_padded(t, lengths(len(b)),
                                               side_group())]
 
 
 def all_gather_rows(cols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every rank's rows of each 1-D column, concatenated in rank order,
     on every rank."""
-    lens = _lengths(cols[0].shape[0])
+    lens = lengths(cols[0].shape[0])
     out = []
     for c in cols:
         src = c.cpu() if _staged(c) else c
         cat = torch.cat(_gather_padded(src, lens, None))
         out.append(cat.to(c.device) if _staged(c) else cat)
     return out
+
+
+def gather_rows(cols: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+    """Every rank's rows of each 1-D column, concatenated in rank order,
+    on the host of rank 0 alone (None on the other ranks)."""
+    lens = lengths(cols[0].shape[0])
+    out = []
+    for c in cols:
+        h = c.detach().cpu()
+        pad = torch.zeros((max(max(lens), 1),), dtype=h.dtype)
+        pad[:h.shape[0]] = h
+        parts = ([torch.empty_like(pad) for _ in range(size())]
+                 if rank() == 0 else None)
+        dist.gather(pad, parts, dst=0, group=side_group())
+        if rank() == 0:
+            out.append(torch.cat([p[:n] for p, n in zip(parts, lens)]))
+    return out if rank() == 0 else None
 
 
 def gather_segments(seg: bytes) -> List[bytes]:

@@ -1,7 +1,6 @@
 """Prefix-sharded counting and the distributed finalize, one rank a device.
 
-Counterpart of bfc_tpu/parallel/mesh.py with the table replicated
-(shard_table off, its default):
+Counterpart of bfc_tpu/parallel/mesh.py:
 
   counting   each rank takes rows [r B/R, (r+1) B/R) of every padded batch
              of B reads, rolls their k-mers (KA), routes each row to the
@@ -16,8 +15,15 @@ Counterpart of bfc_tpu/parallel/mesh.py with the table replicated
              rows it received by first occurrence (KI, exact at any
              arrival width, every block wholly on one rank), sends the
              verdicts back, and computes its rows' payloads (KK).  The
-             histograms and kept counts are summed, the kept entries
-             gathered, and every rank builds the whole table (KL).
+             histograms and kept counts are summed.  With the table
+             replicated (the default) the kept entries are gathered and
+             every rank builds the whole table (KL).  With the sharded
+             table (BFC_TPU_SHARD_TABLE=1, R a power of two) a rank's kept
+             entries are exactly its sub-table's keys, since the counting
+             route's owner (the top log2 R bits of the l_pre prefix) is
+             the sub-table's (the top log2 R bits of the position key):
+             each rank builds its sub-table (KN) with nothing exchanged,
+             and the ranks map each other's (peer.share).
 
 Arrivals are global (bfc_tpu's mesh.py:110-114), so the counts and
 verdicts are those of the single-device pass, and so is the output.
@@ -31,15 +37,17 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..models import counter as C
+from ..ops import kmer as kops
 from ..ops import route
 from ..ops import spectrum as spec
 from ..ops import spectrum_dense as sdn
 from ..opts import Opts
 from ..utils.log import log
-from . import comm
+from . import comm, peer
 
 
 def sharded_chunk_run(bases, qual_ok, lens, arrival_base: int, k: int,
@@ -90,26 +98,134 @@ def sharded_payloads(run: sdn.Run, fp):
             hist, hist_high)
 
 
-def finalize_mesh(run: sdn.Run, opt: Opts) -> C.DeviceSpectrum:
-    """The distributed finalize of this rank's folded run: the replicated
-    table on every rank (bfc_tpu's _finalize_sharded with shard_table off,
-    mesh.py:610-667)."""
+def shardable(shard_table: bool) -> bool:
+    """Whether this mesh takes the sharded table: asked for and R a power
+    of two (bfc_tpu's mesh.py:650); otherwise it is replicated, and a
+    request that cannot be met is logged."""
+    R = comm.size()
+    if shard_table and R & (R - 1):
+        log(f"a sharded table needs a power-of-two number of devices, not "
+            f"{R}; correcting with a replicated table", func="mesh")
+        return False
+    return shard_table
+
+
+def sharded_spectrum(shard, keybody, payload, hist, hist_high, k: int,
+                     l_pre: int, verdict: str, t0: float) -> C.DeviceSpectrum:
+    """The sharded table from this rank's kept entries, its own sub-table
+    (bfc_tpu's _finalize_sharded with shard_table on, mesh.py:641-660):
+    cb_local by counter.subtable_bits from the fullest rank, KN on every
+    rank, all ranks again one bit larger if any rank failed a placement,
+    then peer.share.  hist and hist_high are the mesh's sums; t0 is when
+    the finalize began.  The spectrum's entries are this rank's."""
+    R = comm.size()
+    db = R.bit_length() - 1
+    kb_bits = kops.keybody_bits(k, l_pre)
+    dev = shard.device
+    by_rank = comm.lengths(shard.shape[0])
+    t1 = time.time()
+    cb_local = C.subtable_bits(max(by_rank), k, l_pre, db)
+    while True:
+        buf = peer.alloc(1 << cb_local, dev) if dev.type == "cuda" else None
+        own, ok = spec.cuckoo_build_local(
+            shard, keybody, payload, l_pre, kb_bits, db + cb_local, db,
+            out=None if buf is None else buf.tensor())
+        if int(comm.all_reduce(torch.tensor([int(not ok)]))) == 0:
+            break
+        if buf is not None:
+            buf.release()
+        log(f"cuckoo placement failed at cb_local {cb_local} on a rank; "
+            "retrying larger", func="mesh")
+        cb_local += 1
+    table = peer.share(own, k, l_pre, kb_bits, buf)
+
+    def pull():
+        return (shard.cpu().numpy().astype(np.uint32),
+                keybody.cpu().numpy().view(np.uint64),
+                payload.cpu().numpy().view(np.uint32))
+
+    ds = C.DeviceSpectrum(table, sum(by_rank), _np(hist), _np(hist_high),
+                          pull, verdict)
+    ds.entries_by_rank = by_rank
+    log(f"# distinct k-mers in table: {sum(by_rank)} (sharded over {R} "
+        f"devices: {by_rank} entries; verdict and payloads "
+        f"{t1 - t0:.1f}s, sub-tables {time.time() - t1:.1f}s, cb_local "
+        f"{cb_local})")
+    return ds
+
+
+def _np(t):
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def finalize_mesh(run: sdn.Run, opt: Opts,
+                  shard_table: bool = False) -> C.DeviceSpectrum:
+    """The distributed finalize of this rank's folded run (bfc_tpu's
+    _finalize_sharded, mesh.py:610-667): the sharded table where
+    shardable(shard_table), else the replicated table on every rank."""
     t0 = time.time()
-    run = sdn.run_to_aggregate(run, opt.k, opt.effective_l_pre())
+    k, l_pre = opt.k, opt.effective_l_pre()
+    run = sdn.run_to_aggregate(run, k, l_pre)
     fp = sharded_adjudicate(run, opt.bf_shift, opt.n_hashes)
     shard, keybody, payload, _, hist, hist_high = sharded_payloads(run, fp)
     hist, hist_high = comm.all_reduce(hist), comm.all_reduce(hist_high)
+    if shardable(shard_table):
+        return sharded_spectrum(shard, keybody, payload, hist, hist_high, k,
+                                l_pre, "KI", t0)
     shard, keybody, payload = comm.all_gather_rows([shard, keybody, payload])
     return C.table_on_device(shard, keybody, payload, hist, hist_high, opt,
                              "KI", t0)
 
 
-def count_file_mesh(fn: str, opt: Opts, device,
-                    batch_reads: int = 16384) -> C.DeviceSpectrum:
+def restore_mesh(fn: str, device, shard_table: bool) -> C.DeviceSpectrum:
+    """A -r dump on every rank: the spectrum restore_spectrum gives, or
+    with the sharded table (bfc_tpu's shard_cuckoo_table, mesh.py:287-326)
+    each rank's sub-table of the restored entries it owns, built by KN."""
+    if not shardable(shard_table):
+        return C.restore_spectrum(fn, device)
+    t0 = time.time()
+    k, l_pre, shard, keybody, payload = C.read_dump(fn)
+    db = comm.size().bit_length() - 1
+    kb_bits = kops.keybody_bits(k, l_pre)
+    s = torch.from_numpy(shard.astype(np.int64))
+    kb = torch.from_numpy(keybody.view(np.int64))
+    owner = spec.subtable_owner(s, kb, l_pre, kb_bits, db)
+    mine = torch.nonzero(owner == comm.rank()).flatten()
+    hist = np.bincount(payload & 0xFF, minlength=256)[:256]
+    hist[0] = 0
+    hist_high = np.bincount((payload >> 8) & 0x3F, minlength=64)[:64]
+    dev = torch.device(device)
+    return sharded_spectrum(
+        s[mine].to(dev), kb[mine].to(dev),
+        torch.from_numpy(payload.view(np.int32))[mine].to(dev), hist,
+        hist_high, k, l_pre, "restored", t0)
+
+
+def dump_mesh(ds: C.DeviceSpectrum, fn: str) -> None:
+    """-d in a mesh, a collective: rank 0 alone writes the dump.  A sharded
+    spectrum's entries are gathered to rank 0 for it, in rank order, which
+    is shard order."""
+    if not isinstance(ds.table, spec.ShardedTable):
+        if comm.rank() == 0:
+            ds.dump(fn)
+        return
+    cols = [torch.from_numpy(np.ascontiguousarray(c).view(np.int64)
+                             if c.dtype == np.uint64 else c.astype(np.int64))
+            for c in ds.compact_entries()]
+    got = comm.gather_rows(cols)
+    if got is not None:
+        shard, keybody, payload = (c.numpy() for c in got)
+        C.write_dump(fn, ds.k, ds.l_pre, shard, keybody.view(np.uint64),
+                     payload)
+
+
+def count_file_mesh(fn: str, opt: Opts, device, batch_reads: int = 16384,
+                    shard_table: bool = False) -> C.DeviceSpectrum:
     """Counting pass sharded over the ranks from a FASTQ file (bfc_tpu's
     count_file_mesh, mesh.py:346-398, and count_encoded_mesh, :401-538):
     this rank decodes and counts rows [r B/R, (r+1) B/R) of every batch,
-    and the spectrum is finalized on the devices."""
+    and the spectrum is finalized on the devices, its table sharded with
+    shard_table (finalize_mesh)."""
     R, r = comm.size(), comm.rank()
     if batch_reads % R:
         raise ValueError(f"batch_reads {batch_reads} is not a multiple of "
@@ -136,6 +252,6 @@ def count_file_mesh(fn: str, opt: Opts, device,
         acc = sdn.empty_run(dev)
     n_agg = int(comm.all_reduce(torch.tensor([len(acc)])))
     log(f"{n_agg} distinct k-mers aggregated", func="count_file_mesh")
-    ds = finalize_mesh(acc, opt)
+    ds = finalize_mesh(acc, opt, shard_table)
     ds.n_reads, ds.n_aggregated = n_reads, n_agg
     return ds

@@ -1,8 +1,8 @@
-"""Smoke run of bfc_tpu_torch on one CUDA card: builds the thirteen
+"""Smoke run of bfc_tpu_torch on one CUDA card: builds the fourteen
 kernels, drives the count + correct main path and the trim path (-1) at
-E. coli scale, with the host finalize, with the device finalize and over
-a mesh of ranks, and holds every kernel against its plain PyTorch
-version.
+E. coli scale, with the host finalize, with the device finalize, over a
+mesh of ranks with the table replicated and sharded, and from a dump
+(-d/-r), and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -17,7 +17,8 @@ Phases (any failure raises; nothing is caught):
    count is zeroed just before and read just after; each kernel must have
    launched.  The output must hold one record per input read, and 1,000
    seeded reads re-corrected by the scalar model (refmodel.ec1) on the
-   same spectrum must give byte-identical records.
+   same spectrum must give byte-identical records.  The run dumps its
+   spectrum (-d) for phase 14, timed apart from both phases.
 3. The counting against plain versions: the main path's counting tree is
    built again from the same reads with KB held against its plain
    version on every merge (up to the final fold of ~50M rows), and must
@@ -76,6 +77,24 @@ Phases (any failure raises; nothing is caught):
    batch's KA rows (16,384 reads x 128 slots) at R = 2, 4 and 8, and by
    the Bloom-block rule on the main fold's (ret, arrival) rows at R = 2
    and 8.
+12. The main path over the mesh with the sharded table
+   (BFC_TPU_SHARD_TABLE=1, `--mesh R -s 5m`) through the launcher, on the
+   same reads: (a) device_count() NCCL ranks; (b) two gloo ranks sharing
+   cuda:0, where each rank reads its peer's sub-table through a CUDA IPC
+   mapping.  In every rank KA, KM, KB, KJ, KI, KK, KN, KC and KD must have
+   launched and KL, KE and KF not; the report must say "sharded", and
+   each output must hash as phase 2's.  Each rank's sub-table bytes are
+   printed beside the replicated table's.
+13. KN against its plain version: the main fold's kept entries split by
+   owner at R = 2, 4 and 8, each rank's sub-table built by both, compared
+   by lookups of every kept entry and 1,000,000 seeded other keys with
+   the replicated table (KL); then KC and KD on the 8,192-read correction
+   batch over those R sub-tables, held in one process behind one address
+   array, equal to KC and KD on the replicated table and to their plain
+   versions (KD's on its first 512 reads).
+14. -r: the reads corrected from phase 2's dump on the card (KC and KD
+   must launch, KA not), then over two gloo ranks with the sharded table
+   (KN in every rank); both outputs must hash as phase 2's.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times are CUDA-event means over repeated launches after a warm-up.
@@ -91,6 +110,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -438,16 +458,16 @@ def check_head_count(fq: Path, opt, dev):
     return len(got.shard), ds_g.n_entries
 
 
-def drive(opt, fq: Path, out: Path, device_finalize: bool = False):
-    """One run of run_device over fq into out, with every launch count
-    zeroed just before and read just after.  Returns (report, launches,
-    device memory peak in bytes)."""
+def drive(opt, fq: Path, out: Path, device_finalize: bool = False, **kw):
+    """One run of run_device over fq into out (kw: its in_hash, out_hash),
+    with every launch count zeroed just before and read just after.
+    Returns (report, launches, device memory peak in bytes)."""
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     report = {}
     with open(out, "wb") as sink:
         DP.run_device(opt, str(fq), sink=sink, device="cuda", report=report,
-                      device_finalize=device_finalize)
+                      device_finalize=device_finalize, **kw)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     return report, launches, torch.cuda.max_memory_allocated()
 
@@ -825,17 +845,152 @@ def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
     return res
 
 
-def drive_mesh(fq: Path, out: Path, n: int, backend: str, tmp: Path):
-    """The main path over n ranks through the launcher (`--mesh n -s 5m`),
-    rank 0's stdout into out.  Returns rank 0's report, which holds every
-    rank's launch counts (launches_by_rank) and the phase walls."""
+def drive_mesh(fq: Path, out: Path, n: int, backend: str, tmp: Path,
+               shard_table: bool = False, flags=()):
+    """The main path over n ranks through the launcher (`--mesh n -s 5m`,
+    then flags), rank 0's stdout into out; shard_table sets
+    BFC_TPU_SHARD_TABLE=1 for the ranks.  Returns rank 0's report, which
+    holds every rank's launch counts (launches_by_rank) and the phase
+    walls."""
     rep_path = tmp / f"mesh_{backend}_{n}.json"
-    with open(out, "wb") as sink:
-        rc = multihost.launch(n, ["-s", "5m", str(fq)], backend=backend,
-                              stdout=sink, report_path=str(rep_path))
+    env = os.environ.copy()
+    os.environ["BFC_TPU_SHARD_TABLE"] = "1" if shard_table else "0"
+    try:
+        with open(out, "wb") as sink:
+            rc = multihost.launch(n, ["-s", "5m", *flags, str(fq)],
+                                  backend=backend, stdout=sink,
+                                  report_path=str(rep_path))
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
     if rc != 0:
         fail(f"the mesh run over {n} {backend} ranks exited with {rc}")
     return json.loads(rep_path.read_text())
+
+
+def check_mesh_run(mrep, n: int, backend: str, n_reads: int, launched,
+                   silent, out: Path, main_hash: str, table: str) -> str:
+    """A mesh run's report and output against what it must be: world
+    size and backend, the reads counted (a counting run), every rank's
+    launches, the table layout and the output's hash.  Returns its label."""
+    label = f"{mrep['world_size']} {mrep['backend']} ranks"
+    if (mrep["world_size"], mrep["backend"]) != (n, backend):
+        fail(f"the mesh run reports {label}, not {n} {backend}")
+    if n_reads and mrep["n_reads"] != n_reads:
+        fail(f"the mesh run over {label} counted {mrep['n_reads']} reads of "
+             f"{n_reads}")
+    for i, ls in enumerate(mrep["launches_by_rank"]):
+        need_launched(ls, launched, f"rank {i} of {label}")
+        need_silent(ls, silent, f"rank {i} of {label}")
+    if mrep["table"] != table:
+        fail(f"the run over {label} has a {mrep['table']} table, not {table}")
+    if file_hash(out) != main_hash:
+        fail(f"the output over {label} differs from the main path's")
+    return label
+
+
+def check_sharded(fold, opt, bases, quals, dev, seed):
+    """KN against its plain version and the sharded KC and KD against the
+    replicated ones (phase 13).  The main fold's kept entries (KJ, KI, KK)
+    split by owner at R = 2, 4, 8; KN's and the plain version's sub-tables
+    probed with every kept entry and ABSENT_KEYS seeded keys against the
+    replicated table (KL); KC and KD on the correction batch over KN's
+    sub-tables against the replicated table's and their plain versions.
+    Times and the bound are one rank's sub-table at R = 2; the sharded KC
+    and KD times are at R = 2.  Returns (KN's result, KC's and KD's
+    sharded results)."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    kb_bits = kops.keybody_bits(k, l_pre)
+    ret = sdn.derive_ret(fold.shard, fold.keybody, k, l_pre)
+    fp = spec.adjudicate_first_occurrence(ret, fold.arr, opt.bf_shift,
+                                          opt.n_hashes)
+    payload, keep, hist, _ = spec.finalize_counts(fold.n, fold.n_high,
+                                                  fold.first_high, fp)
+    del ret, fp
+    mode = C._mode_from_hist(hist.cpu().numpy())
+    ks, kkb, kp = fold.shard[keep], fold.keybody[keep], payload[keep]
+    del payload, keep
+    n = ks.shape[0]
+    c_bits = C.table_c_bits(n, k, l_pre, opt.predicted_c_bits())
+    rep, ok = spec.cuckoo_build(ks, kkb, kp, k, l_pre, kb_bits, c_bits)
+    if not ok:
+        fail(f"KL failed at c_bits {c_bits}")
+    replicated = spec.SpecTable(rep, k, l_pre, kb_bits, c_bits)
+    rng = np.random.default_rng(seed + 4)
+    qs = torch.from_numpy(rng.integers(0, 1 << l_pre, ABSENT_KEYS)).to(dev)
+    qk = torch.from_numpy(rng.integers(0, 1 << kb_bits, ABSENT_KEYS)).to(dev)
+    want_kept = kp.to(torch.int64)
+    want_other = lookup(replicated, qs, qk)
+    b, q, lens = corr_batch(bases, quals, opt, dev, COUNT_B)
+    B, L = b.shape
+    kc_rep = ann.kcov_island(replicated, b, lens, opt.min_cov)
+    kd_rep = srch.ec1_search(replicated, opt, mode, b, q, lens, *kc_rep[1:])
+    kn = {"mismatches": 0, "max_abs_err": 0.0, "rows_by_R": {},
+          "cb_local_by_R": {}}
+    kc = {"mismatches": 0, "max_abs_err": 0.0}
+    kd = {"mismatches": 0, "max_abs_err": 0.0}
+
+    def tally(r, got, want):
+        err, n_diff = compare(got, want)
+        r["mismatches"] += n_diff if n_diff >= 0 else 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    for R in (2, 4, 8):
+        db = R.bit_length() - 1
+        owner = spec.subtable_owner(ks, kkb, l_pre, kb_bits, db)
+        by_rank = torch.bincount(owner, minlength=R).tolist()
+        cb_local = C.subtable_bits(max(by_rank), k, l_pre, db)
+        kn["rows_by_R"][R], kn["cb_local_by_R"][R] = by_rank, cb_local
+        built = {"KN": [], "plain": []}
+        for r in range(R):
+            idx = torch.nonzero(owner == r).flatten()
+            args = (ks[idx], kkb[idx], kp[idx], l_pre, kb_bits,
+                    db + cb_local, db)
+            t, ok = spec.cuckoo_build_local(*args)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            tp, okp = spec.cuckoo_build_local_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            if not (ok and okp):
+                fail(f"sub-table placement failed at R = {R}, cb_local "
+                     f"{cb_local} (KN {ok}, plain {okp})")
+            built["KN"].append(t)
+            built["plain"].append(tp)
+            if R == 2 and r == 0:
+                m = idx.shape[0]
+                kn.update(ms=cuda_ms(lambda: spec.cuckoo_build_local(*args),
+                                     5),
+                          plain_ms=plain_ms, rows=m, cb_local=cb_local,
+                          bound=bound(m * (8 + 8 + 4 + SECTOR)
+                                      + (8 << cb_local), m * OPS_PROBE))
+            del idx, args
+        for tabs in built.values():
+            st = spec.sharded_table(tabs, k, l_pre, kb_bits, db)
+            tally(kn, (lookup(st, ks, kkb), lookup(st, qs, qk)),
+                  (want_kept, want_other))
+        st = spec.sharded_table(built["KN"], k, l_pre, kb_bits, db)
+        got_kc = ann.kcov_island(st, b, lens, opt.min_cov)
+        tally(kc, got_kc, kc_rep)
+        tally(kc, got_kc, ann.kcov_island_plain(st, b, lens, opt.min_cov))
+        got_kd = srch.ec1_search(st, opt, mode, b, q, lens, *got_kc[1:])
+        tally(kd, got_kd, kd_rep)
+        m = KD_PLAIN_READS
+        tally(kd, [x[:m] for x in got_kd], srch.ec1_search_plain(
+            st, opt, mode, *(x[:m] for x in (b, q, lens, *got_kc[1:]))))
+        if R == 2:
+            kc["ms"] = cuda_ms(lambda: ann.kcov_island(st, b, lens,
+                                                       opt.min_cov), 20)
+            kd["ms"] = cuda_ms(lambda: srch.ec1_search(
+                st, opt, mode, b, q, lens, *got_kc[1:]), 3)
+            kc["ms_replicated"] = cuda_ms(lambda: ann.kcov_island(
+                replicated, b, lens, opt.min_cov), 20)
+            kd["ms_replicated"] = cuda_ms(lambda: srch.ec1_search(
+                replicated, opt, mode, b, q, lens, *kc_rep[1:]), 3)
+        del built, st, got_kc, got_kd
+        torch.cuda.empty_cache()
+    kn["keys"] = n
+    return kn, kc, kd
 
 
 def check_route(opt, fold, bases, quals, dev):
@@ -912,6 +1067,8 @@ SOURCES = {
                      "bfc_tpu/ops/spectrum.py:543"),
     "route_rows": ("KM", "bfc_tpu_torch/csrc/route_rows.cu",
                    "bfc_tpu/parallel/mesh.py:120"),
+    "cuckoo_build_local": ("KN", "bfc_tpu_torch/csrc/cuckoo_build_local.cu",
+                           "bfc_tpu/ops/spectrum.py:467"),
 }
 MAIN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "kcov_island",
                 "ec1_search")
@@ -925,6 +1082,9 @@ TRIM_DEVICE_KERNELS = ("kmer_stream", "run_combine", "bloom_adjudicate",
 MESH_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
                 "first_occurrence", "finalize_counts", "cuckoo_build",
                 "kcov_island", "ec1_search")
+SHARDED_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
+                   "first_occurrence", "finalize_counts",
+                   "cuckoo_build_local", "kcov_island", "ec1_search")
 
 
 def main() -> int:
@@ -962,14 +1122,17 @@ def main() -> int:
         opt = Opts()
         opt.apply_genome_size(cli.parse_size("5m"))
         out_fq = tmp / "corrected.fq"
-        report, launches, peak = drive(opt, fq, out_fq)
+        dump = tmp / "spectrum.dump"
+        report, launches, peak = drive(opt, fq, out_fq, out_hash=str(dump))
         cs, es = report["count_s"], report["correct_s"]
         print(f"main path (k={opt.k}, -b{opt.bf_shift}): counting {cs:.2f} s "
               f"({n_reads / cs:.0f} reads/s), correction {es:.2f} s "
               f"({n_reads / es:.0f} reads/s), end to end "
               f"{n_reads / (cs + es):.0f} reads/s; "
               f"{report['n_aggregated']} distinct k-mers aggregated, "
-              f"{report['n_kept']} kept; device memory peak "
+              f"{report['n_kept']} kept, c_bits {report['c_bits']}; -d dump "
+              f"{dump.stat().st_size} bytes in {report['dump_s']:.2f} s; "
+              f"device memory peak "
               f"{peak / 2**30:.2f} GiB; scalar fallback "
               f"{report['n_fallback']} reads; launches {launches}",
               flush=True)
@@ -1177,40 +1340,102 @@ def main() -> int:
               f"{r['rows']}-row counting batch (R = 2, 4, 8) and by the "
               f"Bloom-block rule on the {r['rows_fold']}-row main fold "
               f"(R = 2, 8); {time.time() - t0:.1f} s", flush=True)
+
+        # ---- KN and the sharded KC and KD (phase 13, while the fold is
+        # on the card)
+        t0 = time.time()
+        kn, kc_sh, kd_sh = check_sharded(main_fold, opt, bases, quals, dev,
+                                         args.seed)
+        res["cuckoo_build_local"] = kn
+        res["kcov_island"]["sharded"] = kc_sh
+        res["ec1_search"]["sharded"] = kd_sh
+        print(f"KN: {kn['keys']} kept entries split by owner at R = 2, 4, 8 "
+              f"(entries {kn['rows_by_R']}, cb_local {kn['cb_local_by_R']}); "
+              f"KN's and the plain version's sub-tables answer every kept "
+              f"entry and {ABSENT_KEYS} other keys as the replicated table "
+              f"does ({kn['mismatches']} mismatches); KC and KD over the "
+              f"sub-tables equal the replicated table's and their plain "
+              f"versions ({kc_sh['mismatches']}, {kd_sh['mismatches']} "
+              f"mismatches); at R = 2 KN {kn['ms']:.3f} ms on "
+              f"{kn['rows']} keys (plain {kn['plain_ms']:.1f} ms), KC "
+              f"{kc_sh['ms']:.3f} ms (replicated {kc_sh['ms_replicated']:.3f})"
+              f", KD {kd_sh['ms']:.3f} ms (replicated "
+              f"{kd_sh['ms_replicated']:.3f}); {time.time() - t0:.1f} s",
+              flush=True)
         del main_fold
         torch.cuda.empty_cache()
 
         # ---- the main path over the mesh, through the launcher
         mesh_launches = {}
-        for n, backend in ((torch.cuda.device_count(), "nccl"), (2, "gloo")):
-            mout = tmp / f"corrected_mesh_{backend}.fq"
-            mrep = drive_mesh(fq, mout, n, backend, tmp)
-            cs, es = mrep["count_s"], mrep["correct_s"]
-            label = f"{mrep['world_size']} {mrep['backend']} ranks"
-            print(f"main path over {label} (verdict {mrep['verdict']}): "
-                  f"counting {cs:.2f} s ({n_reads / cs:.0f} reads/s), "
-                  f"correction {es:.2f} s ({n_reads / es:.0f} reads/s), end "
-                  f"to end {n_reads / (cs + es):.0f} reads/s; "
-                  f"{mrep['n_aggregated']} distinct k-mers aggregated, "
-                  f"{mrep['n_kept']} kept; scalar fallback "
-                  f"{mrep['n_fallback']} reads; launches by rank "
-                  f"{mrep['launches_by_rank']}", flush=True)
-            if (mrep["world_size"], mrep["backend"]) != (n, backend):
-                fail(f"the mesh run reports {label}, not {n} {backend}")
-            if mrep["n_reads"] != n_reads:
-                fail(f"the mesh run over {label} counted {mrep['n_reads']} "
-                     f"reads of {n_reads}")
-            for i, ls in enumerate(mrep["launches_by_rank"]):
-                need_launched(ls, MESH_KERNELS, f"rank {i} of {label}")
-                need_silent(ls, ("pack_pull", "bloom_adjudicate"),
-                            f"rank {i} of {label}")
-            if file_hash(mout) != main_hash:
-                fail(f"the output over {label} differs from the main path's")
-            mout.unlink()
-            mesh_launches[f"mesh_{backend}_{n}"] = {
-                name: sum(ls[name] for ls in mrep["launches_by_rank"])
-                for name in SOURCES}
-        print("mesh outputs byte-identical to the main path's", flush=True)
+        rep_bytes = {}
+        for sharded in (False, True):
+            for n, backend in ((torch.cuda.device_count(), "nccl"),
+                               (2, "gloo")):
+                mout = tmp / f"corrected_mesh_{backend}.fq"
+                mrep = drive_mesh(fq, mout, n, backend, tmp,
+                                  shard_table=sharded)
+                cs, es = mrep["count_s"], mrep["correct_s"]
+                tab_bytes = 8 << (mrep["c_bits"] - (n.bit_length() - 1)
+                                  if sharded else mrep["c_bits"])
+                if not sharded:
+                    rep_bytes[n, backend] = tab_bytes
+                print(f"main path over {n} {backend} ranks, {mrep['table']} "
+                      f"table (verdict {mrep['verdict']}): counting "
+                      f"{cs:.2f} s ({n_reads / cs:.0f} reads/s), correction "
+                      f"{es:.2f} s ({n_reads / es:.0f} reads/s), end to end "
+                      f"{n_reads / (cs + es):.0f} reads/s; "
+                      f"{mrep['n_aggregated']} distinct k-mers aggregated, "
+                      f"{mrep['n_kept']} kept; table bytes a rank "
+                      f"{tab_bytes}"
+                      + (f" (cb_local {mrep['cb_local']}, entries by rank "
+                         f"{mrep['entries_by_rank']}; the replicated table "
+                         f"{rep_bytes[n, backend]} bytes a rank)"
+                         if sharded else "")
+                      + f"; scalar fallback {mrep['n_fallback']} reads; "
+                      f"launches by rank {mrep['launches_by_rank']}",
+                      flush=True)
+                check_mesh_run(
+                    mrep, n, backend, n_reads,
+                    SHARDED_KERNELS if sharded else MESH_KERNELS,
+                    ("pack_pull", "bloom_adjudicate")
+                    + (("cuckoo_build",) if sharded else ()),
+                    mout, main_hash, "sharded" if sharded else "replicated")
+                mout.unlink()
+                tag = "mesh_sharded" if sharded else "mesh"
+                mesh_launches[f"{tag}_{backend}_{n}"] = {
+                    name: sum(ls[name] for ls in mrep["launches_by_rank"])
+                    for name in SOURCES}
+            print(f"mesh outputs ({'sharded' if sharded else 'replicated'} "
+                  "table) byte-identical to the main path's", flush=True)
+
+        # ---- -r: the reads corrected from phase 2's dump
+        rout = tmp / "corrected_restored.fq"
+        rrep, rlaunches, _ = drive(opt, fq, rout, in_hash=str(dump))
+        print(f"-r on the card: restore and table {rrep['count_s']:.2f} s, "
+              f"correction {rrep['correct_s']:.2f} s; {rrep['n_kept']} "
+              f"entries, c_bits {rrep['c_bits']}; launches {rlaunches}",
+              flush=True)
+        need_launched(rlaunches, ("kcov_island", "ec1_search"), "-r")
+        need_silent(rlaunches, ("kmer_stream", "run_combine"), "-r")
+        if file_hash(rout) != main_hash:
+            fail("the output of -r differs from the main path's")
+        mrep = drive_mesh(fq, rout, 2, "gloo", tmp, shard_table=True,
+                          flags=("-r", str(dump)))
+        print(f"-r over 2 gloo ranks, {mrep['table']} table: restore and "
+              f"sub-tables {mrep['count_s']:.2f} s, correction "
+              f"{mrep['correct_s']:.2f} s; cb_local {mrep['cb_local']}, "
+              f"entries by rank {mrep['entries_by_rank']}; launches by rank "
+              f"{mrep['launches_by_rank']}", flush=True)
+        check_mesh_run(mrep, 2, "gloo", 0, ("cuckoo_build_local",
+                                             "kcov_island", "ec1_search"),
+                       ("kmer_stream", "cuckoo_build"), rout, main_hash,
+                       "sharded")
+        rout.unlink()
+        mesh_launches["restore"] = rlaunches
+        mesh_launches["restore_mesh_sharded_gloo_2"] = {
+            name: sum(ls[name] for ls in mrep["launches_by_rank"])
+            for name in SOURCES}
+        print("-r outputs byte-identical to the main path's", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1231,6 +1456,8 @@ def main() -> int:
               f"({r['bound'][1]}); launches {by_path}", flush=True)
         if mism != 0:
             fail(f"kernel {name} disagrees with its plain version")
+        if "sharded" in r and r["sharded"]["mismatches"]:
+            fail(f"kernel {name} over the sub-tables disagrees")
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -1243,9 +1470,14 @@ def main() -> int:
         for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches",
                       "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
                       "rows_sent", "ms_fold", "plain_ms_fold",
-                      "bound_ms_fold", "rows_fold"):
+                      "bound_ms_fold", "rows_fold", "cb_local", "keys",
+                      "rows_by_R", "cb_local_by_R"):
             if extra in r:
                 row[extra] = r[extra]
+        if "sharded" in r:
+            row["sharded_r2"] = {"ms": r["sharded"]["ms"],
+                                 "ms_replicated": r["sharded"]["ms_replicated"],
+                                 "mismatches": r["sharded"]["mismatches"]}
         if name == "run_combine":
             row["max_abs_err"] = max(row["max_abs_err"],
                                      res["run_combine_merges"][0])

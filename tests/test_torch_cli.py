@@ -1,7 +1,7 @@
 """The port's CLI surface: host formatting flags and FASTA input against
 bfc_tpu's scalar spec (models/pipeline.run), byte for byte; the card-or-
 --cpu rule of the entry points; trim mode (-1) with -Q, -D and a second
-file; and the modes not ported yet.
+file; and the modes not ported yet (-d/-r are tests/test_torch_sharded.py's).
 
 The input is a tests/datagen.py dataset with 1% N bases, so -D drops
 reads (a 12 kb genome, 1,500 reads of 100 bp, 1% errors), as FASTQ and as
@@ -92,8 +92,7 @@ def test_trim_flags_match_scalar_spec(noisy, flags, files):
     assert (mine[:1] == b">") == (o.no_qual or files[-1] == "fa")
 
 
-@pytest.mark.parametrize("flag", [["-1", "-d", "x"], ["-R"], ["-d", "x"],
-                                  ["-r", "x"], ["-V4"]])
+@pytest.mark.parametrize("flag", [["-R"], ["-V4"]])
 def test_modes_outside_the_slice_name_their_roadmap_item(flag, noisy):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main([*flag, "--cpu", noisy["fq"]])

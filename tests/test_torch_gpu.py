@@ -1,7 +1,8 @@
-"""The thirteen CUDA kernels against their plain PyTorch versions on a
+"""The fourteen CUDA kernels against their plain PyTorch versions on a
 card, the trim path and the device finalize on the card against the same
 paths on the CPU, and the mesh path (one NCCL rank, two gloo ranks
-sharing the card) against the single-device run.
+sharing the card), with the table replicated and sharded, against the
+single-device run.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -265,3 +266,98 @@ def test_mesh_matches_single_device(card, tmp_path):
              "--launch", str(n), "--backend", backend, "--", *args],
             cwd=root, capture_output=True, check=True)
         assert r.stdout == want, backend
+
+
+def _subtables(ds, db, card, kernel: bool):
+    """The spectrum's entries split by owner into 2^db sub-tables on the
+    card, built by KN (kernel) or its plain version: a ShardedTable."""
+    k, l_pre, kb_bits = ds.k, ds.l_pre, ds.kb_bits
+    shard, keybody, payload = (torch.from_numpy(np.asarray(c).astype(
+        np.int64)).to(card) for c in ds.compact_entries())
+    payload = payload.to(torch.int32)
+    owner = spec.subtable_owner(shard, keybody, l_pre, kb_bits, db)
+    cb_local = TC.subtable_bits(int(torch.bincount(owner).max()), k, l_pre,
+                                db)
+    subs = []
+    for r in range(1 << db):
+        sel = owner == r
+        args = (shard[sel], keybody[sel], payload[sel], l_pre, kb_bits,
+                db + cb_local, db)
+        t, ok = (spec.cuckoo_build_local(*args) if kernel
+                 else spec.cuckoo_build_local_plain(*args))
+        assert ok
+        subs.append(t)
+    return spec.sharded_table(subs, k, l_pre, kb_bits, db)
+
+
+@pytest.mark.parametrize("db", [1, 3])
+def test_kn_matches_plain(card, spectrum, db):
+    """KN's sub-tables and its plain version's answer every kept entry
+    and 100,000 seeded keys as the replicated table does."""
+    opt, ds, b, q = spectrum
+    kernels.reset_launches()
+    got = _subtables(ds, db, card, kernel=True)
+    assert kernels.KN.launches == 1 << db
+    want_t = _subtables(ds, db, card, kernel=False)
+    shard, keybody, _ = (torch.from_numpy(np.asarray(c).astype(np.int64))
+                         for c in ds.compact_entries())
+    rng = np.random.default_rng(db)
+    qs = torch.cat([shard, torch.from_numpy(rng.integers(
+        0, 1 << ds.l_pre, 100_000))]).to(card)
+    qk = torch.cat([keybody, torch.from_numpy(rng.integers(
+        0, 1 << min(ds.kb_bits, 62), 100_000))]).to(card)
+    want = spec.cuckoo_lookup_plain(ds.table, qs, qk)
+    for t in (got, want_t):
+        _eq((spec.cuckoo_lookup_plain(t, qs, qk),), (want,))
+
+
+@pytest.mark.parametrize("db", [1, 3])
+def test_sharded_kc_kd_match_replicated(card, spectrum, db):
+    """KC and KD reading R = 2^db sub-tables through the address array, in
+    one process, against the replicated table and their plain versions."""
+    opt, ds, b, q = spectrum
+    t = _subtables(ds, db, card, kernel=True)
+    bases = torch.from_numpy(b[:256]).to(card)
+    qf = torch.from_numpy(q[:256] >= 33 + opt.q).to(card)
+    lens = torch.full((256,), b.shape[1], dtype=torch.int32, device=card)
+    kc = ann.kcov_island(t, bases, lens, opt.min_cov)
+    _eq(kc, ann.kcov_island(ds.table, bases, lens, opt.min_cov))
+    _eq(kc, ann.kcov_island_plain(t, bases, lens, opt.min_cov))
+    _, lcov, hcov, isl = kc
+    kd = srch.ec1_search(t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl)
+    _eq(kd, srch.ec1_search(ds.table, opt, ds.mode, bases, qf, lens, lcov,
+                            hcov, isl))
+    _eq(kd, srch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens, lcov,
+                                  hcov, isl))
+    assert int((kd[1][:, srch.N_EC] > 0).sum()) > 50
+
+
+def test_sharded_mesh_matches_single_device(card, tmp_path):
+    """BFC_TPU_SHARD_TABLE=1 over one NCCL rank and over two gloo ranks
+    sharing the card, where each rank reads its peer's sub-table through
+    an IPC mapping: the same bytes as run_device, and -r of its -d dump
+    over the two ranks too."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    opt = Opts()
+    opt.k = 23
+    opt.bf_shift = 24
+    want = TDP.run_device(opt, str(fq), device=card).encode()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, BFC_TPU_SHARD_TABLE="1")
+    dump = tmp_path / "s.dump"
+    for n, backend, args in (
+            (1, "nccl", ["-k23", "-b24", str(fq)]),
+            (2, "gloo", ["-k23", "-b24", "-d", str(dump), str(fq)]),
+            (2, "gloo", ["-r", str(dump), str(fq)])):
+        r = subprocess.run(
+            [sys.executable, "-m", "bfc_tpu_torch.parallel.multihost",
+             "--launch", str(n), "--backend", backend, "--", *args],
+            cwd=root, capture_output=True, check=True, env=env)
+        assert r.stdout == want, (backend, args)
+        assert f"sharded over {n} devices".encode() in r.stderr

@@ -2,7 +2,7 @@
 plain PyTorch versions.
 
 csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH), per-row (KB,
-KE, KF, KG, KJ, KK), per-block (KI), per-key (KL) or per-tile (KM) body
+KE, KF, KG, KJ, KK), per-block (KI), per-key (KL, KN) or per-tile (KM) body
 as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
 over the reads, rows or tiles that one CUDA thread or block would take.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
@@ -50,8 +50,8 @@ def shim(tmp_path_factory):
     lib.ka_host.argtypes = [P, P, P, I, I, I, I, LL, P, P, P, P]
     lib.kb_head_host.argtypes = [P, P, LL, P]
     lib.kb_combine_host.argtypes = [LL] + [P] * 16
-    lib.kc_host.argtypes = [P, I, I, I, I, I, P, P, I, I, P, P, P, P]
-    lib.kd_host.argtypes = [P, I, I, I, I, P, I, I] + [P] * 8
+    lib.kc_host.argtypes = [P, P, I, I, I, I, I, I, P, P, I, I, P, P, P, P]
+    lib.kd_host.argtypes = [P, P, I, I, I, I, I, P, I, I] + [P] * 8
     lib.ke_host.argtypes = [LL] + [P] * 6
     lib.kf_host.argtypes = [LL, P, P, P, I, I, P, P, P]
     lib.kg_host.argtypes = [LL, P, P, I, I, P]
@@ -62,13 +62,16 @@ def shim(tmp_path_factory):
     lib.kk_host.argtypes = [LL] + [P] * 8
     lib.kl_host.argtypes = [LL, P, P, P, I, I, I, P, I]
     lib.kl_host.restype = ctypes.c_int
+    lib.kn_host.argtypes = [LL, P, P, P, I, I, I, I, P, I]
+    lib.kn_host.restype = ctypes.c_int
+    lib.subtable_slots_host.argtypes = [LL, P, P, I, I, I, I, P, P, P, P]
     lib.km_count_host.argtypes = [LL, I, P, P, I, I, LL, P]
     lib.km_scatter_host.argtypes = [LL, I, P, P, I, I, LL] + [P] * 10
     for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
               lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
               lib.kj_host, lib.kk_host, lib.km_count_host,
-              lib.km_scatter_host):
+              lib.km_scatter_host, lib.subtable_slots_host):
         f.restype = None
     return lib
 
@@ -161,16 +164,39 @@ def spectrum(request, tmp_path_factory):
         torch.from_numpy(lens)
 
 
+def _table_args(t):
+    """(table, subtables, db, keep-alive) as the host bodies take a
+    SpecTable or a ShardedTable: the sub-tables' host addresses."""
+    if isinstance(t, tspec.ShardedTable):
+        ptrs = np.array([s.data_ptr() for s in t.subtables], np.uint64)
+        return None, ptrs.ctypes.data, t.db, ptrs
+    return _p(t.table), None, 0, None
+
+
 def _kc_host(shim, t, bases, lens, min_cov):
     B, L = bases.shape
     occ = torch.empty((B, L), dtype=torch.int32)
     lcov = torch.empty((B, L), dtype=torch.uint8)
     hcov = torch.empty_like(lcov)
     isl = torch.empty((B, 3), dtype=torch.int32)
-    shim.kc_host(_p(t.table), t.k, t.l_pre, t.kb_bits, t.c_bits, min_cov,
-                 _p(bases), _p(lens), B, L, _p(occ), _p(lcov), _p(hcov),
-                 _p(isl))
+    table, subs, db, _keep = _table_args(t)
+    shim.kc_host(table, subs, db, t.k, t.l_pre, t.kb_bits, t.c_bits,
+                 min_cov, _p(bases), _p(lens), B, L, _p(occ), _p(lcov),
+                 _p(hcov), _p(isl))
     return occ, lcov, hcov, isl
+
+
+def _kd_host(shim, t, opt, mode, bases, qf, lens, lcov, hcov, isl,
+             heap_cap, stack_cap):
+    B, L = bases.shape
+    packed = torch.empty((B, L), dtype=torch.uint8)
+    out = torch.empty((B, tsrch.N_OUT), dtype=torch.int32)
+    ip = tsrch._iparams(opt, mode, heap_cap, stack_cap)
+    table, subs, db, _keep = _table_args(t)
+    shim.kd_host(table, subs, db, t.k, t.l_pre, t.kb_bits, t.c_bits,
+                 ip.ctypes.data, B, L, _p(bases), _p(qf), _p(lens), _p(lcov),
+                 _p(hcov), _p(isl), _p(packed), _p(out))
+    return packed, out
 
 
 def test_kc_body_matches_plain(shim, spectrum):
@@ -194,13 +220,9 @@ def test_kd_body_matches_plain(shim, spectrum, caps):
     want_packed, want_out = tsrch.ec1_search_plain(
         t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl, heap_cap,
         stack_cap)
-    B, L = bases.shape
-    packed = torch.empty((B, L), dtype=torch.uint8)
-    out = torch.empty((B, tsrch.N_OUT), dtype=torch.int32)
-    ip = tsrch._iparams(opt, ds.mode, heap_cap, stack_cap)
-    shim.kd_host(_p(t.table), t.k, t.l_pre, t.kb_bits, t.c_bits,
-                 ip.ctypes.data, B, L, _p(bases), _p(qf), _p(lens), _p(lcov),
-                 _p(hcov), _p(isl), _p(packed), _p(out))
+    B = bases.shape[0]
+    packed, out = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov,
+                           hcov, isl, heap_cap, stack_cap)
     torch.testing.assert_close(out, want_out, rtol=0, atol=0)
     torch.testing.assert_close(packed, want_packed, rtol=0, atol=0)
     n_ovf = int(want_out[:, tsrch.OVERFLOW].sum())
@@ -395,6 +417,105 @@ def test_kl_inserts_match_plain_lookups(shim, trim_agg):
     small = torch.zeros((512,), dtype=torch.int64)
     assert shim.kl_host(600, _p(shard), _p(keybody), _p(kept), l_pre,
                         kb_bits, 9, _p(small), 1000) > 0
+
+
+def _subtables(shim, ds, db):
+    """The spectrum's entries split by owner into 2^db sub-tables, each
+    built by KN's inserts (host body): a ShardedTable, and the cb_local."""
+    k, l_pre, kb_bits = ds.k, ds.l_pre, ds.kb_bits
+    shard, keybody, payload = (torch.from_numpy(np.asarray(c).astype(
+        np.int64)) for c in ds.compact_entries())
+    payload = payload.to(torch.int32)
+    owner = tspec.subtable_owner(shard, keybody, l_pre, kb_bits, db)
+    counts = torch.bincount(owner, minlength=1 << db)
+    cb_local = TC.subtable_bits(int(counts.max()), k, l_pre, db)
+    subs = []
+    for r in range(1 << db):
+        sel = owner == r
+        t = torch.zeros((1 << cb_local,), dtype=torch.int64)
+        assert shim.kn_host(int(sel.sum()), _p(shard[sel].contiguous()),
+                            _p(keybody[sel].contiguous()),
+                            _p(payload[sel].contiguous()), l_pre, kb_bits,
+                            db + cb_local, cb_local, _p(t), 1000) == 0
+        subs.append(t)
+    return tspec.sharded_table(subs, k, l_pre, kb_bits, db), cb_local
+
+
+@pytest.mark.parametrize("db", [0, 1, 3])
+def test_subtable_rules_match_plain(shim, db):
+    """Owner, s1, s2 and qlow by g++ against the plain version at k 21 and
+    63 and cb_local 8 and 30; s2 is not cuckoo_alt's slot."""
+    rng = np.random.default_rng(db)
+    for k in (21, 63):
+        o = Opts()
+        o.k = k
+        l_pre = o.effective_l_pre()
+        kb_bits = tk.keybody_bits(k, l_pre)
+        shard = torch.from_numpy(rng.integers(0, 1 << l_pre, 3000))
+        keybody = torch.from_numpy(rng.integers(
+            0, 1 << min(kb_bits, 63), 3000, dtype=np.uint64).view(np.int64))
+        for cb_local in (8, 30):
+            c_bits = db + cb_local
+            if l_pre + kb_bits - c_bits > 49:
+                c_bits = l_pre + kb_bits - 49
+            got = [torch.empty((3000,), dtype=torch.int64) for _ in range(4)]
+            shim.subtable_slots_host(3000, _p(shard), _p(keybody), l_pre,
+                                     kb_bits, c_bits, db, *map(_p, got))
+            want = tspec.subtable_slots(shard, keybody, l_pre, kb_bits,
+                                        c_bits, db)
+            for name, g, w in zip(("owner", "s1", "s2", "qlow"), got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+            replicated = want[1] ^ tspec.cuckoo_alt(want[3], c_bits - db)
+            assert bool((replicated != want[2]).any())
+
+
+@pytest.mark.parametrize("db", [1, 3])
+def test_kn_kc_kd_bodies_over_subtables(shim, spectrum, db):
+    """KN's inserts per owner give sub-tables that answer as the plain
+    sharded build's and the replicated table for every key of the batch;
+    the KC and KD bodies reading them through the address array equal
+    their plain versions and the replicated table's results."""
+    opt, ds, bases, qf, lens = spectrum
+    sharded, cb_local = _subtables(shim, ds, db)
+    shard, keybody, payload = (torch.from_numpy(np.asarray(c).astype(
+        np.int64)) for c in ds.compact_entries())
+    owner = tspec.subtable_owner(shard, keybody, ds.l_pre, ds.kb_bits, db)
+    plains = []
+    for r in range(1 << db):
+        sel = owner == r
+        t, ok = tspec.cuckoo_build_local_plain(
+            shard[sel], keybody[sel], payload[sel].to(torch.int32),
+            ds.l_pre, ds.kb_bits, db + cb_local, db)
+        assert ok
+        plains.append(t)
+    plain = tspec.sharded_table(plains, ds.k, ds.l_pre, ds.kb_bits, db)
+    rng = np.random.default_rng(db)
+    qs = torch.cat([shard, torch.from_numpy(rng.integers(
+        0, 1 << ds.l_pre, 2000))])
+    qk = torch.cat([keybody, torch.from_numpy(rng.integers(
+        0, 1 << min(ds.kb_bits, 62), 2000))])
+    want = tspec.cuckoo_lookup_plain(ds.table, qs, qk)
+    for t in (sharded, plain):
+        torch.testing.assert_close(tspec.cuckoo_lookup_plain(t, qs, qk),
+                                   want, rtol=0, atol=0)
+    kc = _kc_host(shim, sharded, bases, lens, opt.min_cov)
+    for w, g in zip(tann.kcov_island_plain(ds.table, bases, lens,
+                                           opt.min_cov), kc):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(
+        kc[0], tann.kcov_island_plain(plain, bases, lens, opt.min_cov)[0],
+        rtol=0, atol=0)
+    _, lcov, hcov, isl = kc
+    caps = (tsrch.HEAP_CAP, tsrch.STACK_CAP)
+    got = _kd_host(shim, sharded, opt, ds.mode, bases, qf, lens, lcov, hcov,
+                   isl, *caps)
+    for want in (tsrch.ec1_search_plain(ds.table, opt, ds.mode, bases, qf,
+                                        lens, lcov, hcov, isl, *caps),
+                 tsrch.ec1_search_plain(plain, opt, ds.mode, bases, qf,
+                                        lens, lcov, hcov, isl, *caps)):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert int((got[1][:, tsrch.N_EC] > 0).sum()) > 10
 
 
 def _km_rows(R: int, rule: int, seed: int = 9):

@@ -15,7 +15,8 @@ End to end, on datagen.standard_dataset (an 8 kb genome, 2,400 reads,
 -k17 -b22): `python -m bfc_tpu_torch --cpu --mesh 2` and `--mesh 4` are
 byte-identical to the single-device port and to bfc_tpu's scalar spec
 (models/pipeline.run); --mesh 4 with --batch 1199 leaves ranks without
-reads in the last batch.  Then the launcher's failure handling.
+reads in the last batch.  Then the launcher's failure handling.  The
+sharded table (BFC_TPU_SHARD_TABLE=1) is tests/test_torch_sharded.py's.
 
 The ranks meet through a file in tmp_path.  This module imports neither
 jax nor bfc_tpu at its top: spawned ranks import it again.  Tolerance:
@@ -287,14 +288,6 @@ def test_trim_ignores_the_mesh(e2e):
     want = _port_cli("-1", "-k17", "-b22", fq).stdout
     assert 0 < want.count(b"\n")
     assert _port_cli("--mesh", "2", "-1", "-k17", "-b22", fq).stdout == want
-
-
-def test_shard_table_names_its_roadmap_item(e2e, monkeypatch):
-    from bfc_tpu_torch import cli
-
-    monkeypatch.setenv("BFC_TPU_SHARD_TABLE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        cli.main(["--mesh", "2", "--cpu", e2e[0]])
 
 
 def test_a_failed_rank_fails_the_launch(tmp_path):

@@ -23,6 +23,8 @@ from .opts import Opts
 from .utils import log as ulog
 
 VERSION = f"torch-{__version__}(r181-compat)"
+SHORT_OPTS = "hvV:Ed:k:s:b:L:t:C:H:q:Jr:c:w:D1QR"
+LONG_OPTS = ["batch=", "cpu", "mesh="]
 
 
 def usage(fp, o: Opts) -> None:
@@ -85,10 +87,7 @@ def main(argv: Optional[List[str]] = None,
     in_hash = out_hash = None
     ulog.reset_clock()
     try:
-        optlist, args = getopt.getopt(
-            argv, "hvV:Ed:k:s:b:L:t:C:H:q:Jr:c:w:D1QR",
-            ["batch=", "cpu", "mesh="],
-        )
+        optlist, args = getopt.getopt(argv, SHORT_OPTS, LONG_OPTS)
     except getopt.GetoptError as e:
         sys.stderr.write(f"bfc-tpu-torch: {e}\n")
         usage(sys.stderr, opt)

@@ -12,6 +12,7 @@
 #include "finalize.cuh"
 #include "kcov_island.cuh"
 #include "kmer_stream.cuh"
+#include "probe.cuh"
 #include "route_rows.cuh"
 #include "run_combine.cuh"
 
@@ -213,6 +214,53 @@ void probe_bits_host(long long C, const int64_t* ret, int bf_shift,
     for (long long i = 0; i < C; i++)
         bloom_probe_bits((uint64_t)ret[i], bf_shift, n_hashes,
                          (uint64_t*)out + i * n_hashes);
+}
+
+// The probe kernels KO-KR: one query, element or row (or, for KQ's
+// register variant, each of a row's 32 lanes) at a time.
+void ko_host(long long Q, const int32_t* tab, long long N, const int32_t* idx,
+             int steps, int32_t* v, int32_t* ix) {
+    for (long long q = 0; q < Q; q++)
+        ko_query(tab, (uint32_t)(N - 1), idx[q], steps, v + q, ix + q);
+}
+
+void kp_row_host(long long Q, const int32_t* tab, long long rows,
+                 const int32_t* idx, int steps, int32_t* out, int32_t* ix) {
+    for (long long q = 0; q < Q; q++)
+        kp_row_query(tab, (uint32_t)(rows - 1), idx[q], steps,
+                     out + q * PROBE_W, ix + q);
+}
+
+void kp_column_host(long long Q, const int32_t* tab, long long rows,
+                    const int32_t* idx, int steps, int32_t* v, int32_t* ix) {
+    for (long long e = 0; e < Q * PROBE_W; e++)
+        kp_col_elem(tab, (uint32_t)(rows - 1), (int)(e % PROBE_W), idx[e],
+                    steps, v + e, ix + e);
+}
+
+void kp_lane_host(long long rows, const int32_t* tab, const int32_t* idx,
+                  int steps, int32_t* v, int32_t* ix) {
+    for (long long e = 0; e < rows * PROBE_W; e++)
+        kp_lane_elem(tab + e / PROBE_W * PROBE_W, idx[e], steps, v + e,
+                     ix + e);
+}
+
+void kq_registers_host(long long B, int32_t* x, const int32_t* pos,
+                       int steps) {
+    for (long long b = 0; b < B; b++)
+        for (int lane = 0; lane < 32; lane++)
+            kq_lane(x + b * PROBE_W + 4 * lane, lane, pos[b], steps);
+}
+
+void kq_shared_host(long long B, int32_t* x, const int32_t* pos, int steps) {
+    for (long long b = 0; b < B; b++)
+        kq_row(x + b * PROBE_W, pos[b], steps);
+}
+
+void kr_host(long long Q, const int32_t* lo, const int32_t* hi, long long N,
+             const int32_t* idx, int steps, int32_t* v, int32_t* ix) {
+    for (long long q = 0; q < Q; q++)
+        kr_query(lo, hi, (uint32_t)(N - 1), idx[q], steps, v + q, ix + q);
 }
 
 }  // extern "C"

@@ -130,8 +130,25 @@ KN = Kernel("cuckoo_build_local", {
     "kn_open": [_I, _P, _P],
     "kn_close": [_I, _P],
 })
+# The probe kernels (ops/probe.py): the access patterns of the TPU probe
+# scripts' Pallas kernels, on the probe path (chip_probe.py).
+KO = Kernel("probe_flat_gather", {
+    "ko_launch": [_LL, _P, _LL, _P, _I, _P, _P, _P],
+})
+KP = Kernel("probe_tile_gather", {
+    "kp_row_launch": [_LL, _P, _LL, _P, _I, _P, _P, _P],
+    "kp_column_launch": [_LL, _P, _LL, _P, _I, _P, _P, _P],
+    "kp_lane_launch": [_LL, _P, _P, _I, _P, _P, _P],
+})
+KQ = Kernel("probe_onehot_passes", {
+    "kq_registers_launch": [_LL, _P, _P, _I, _P],
+    "kq_shared_launch": [_LL, _P, _P, _I, _P],
+})
+KR = Kernel("probe_two_plane", {
+    "kr_launch": [_LL, _P, _P, _LL, _P, _I, _P, _P, _P],
+})
 KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH, KI, KJ, KK,
-                               KL, KM, KN)}
+                               KL, KM, KN, KO, KP, KQ, KR)}
 
 
 def reset_launches() -> None:

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils.log import log
 from .kmer import canonical_hash, shard_and_keybody, srl
 from .spectrum_dense import as_i32
 
@@ -465,15 +466,35 @@ class Verdict(NamedTuple):
     by: str             # the kernel that gave fp: "KF" or "KI"
 
 
+def verdict_route(arr_max: int, bf_shift: int,
+                  free_bytes: Optional[int]) -> str:
+    """The kernel that gives the verdicts, chosen before any launch: KF
+    while every first arrival is below 2^32 - 1 and its 4 * 2^bf_shift
+    bytes of scratch are free (free_bytes None: no limit, as for the plain
+    versions on the CPU), else KI, which gives the same verdicts with ~64
+    bytes a row (-b35 to -b37 on an 80 GB card)."""
+    if arr_max < ARRIVAL_LIMIT and (free_bytes is None
+                                    or 4 << bf_shift <= free_bytes):
+        return "KF"
+    return "KI"
+
+
 def adjudicate(ret, arr, n, bf_shift: int, n_hashes: int) -> Verdict:
     """First-occurrence verdicts and the keep set n - 1 + fp >= 1, as both
     of bfc_tpu's device verdicts choose (counter.py:756-765, trimmer.py:
-    126-130): KF while every first arrival is below 2^32 - 1, KI above.
+    126-130): KF while every first arrival is below 2^32 - 1, KI above,
+    and KI too where KF's scratch is not free (verdict_route).
     ret, arr, n int64 [C]."""
     C = ret.shape[0]
-    kernels.check(n, "n", torch.int64, (C,), ret.device)
+    dev = ret.device
+    kernels.check(n, "n", torch.int64, (C,), dev)
     arr_max = int(arr.max()) if C else 0
-    if arr_max < ARRIVAL_LIMIT:
+    free = None if dev.type == "cpu" else kernels.device_free_bytes(dev)
+    by = verdict_route(arr_max, bf_shift, free)
+    if free is not None:   # the route can turn on what else holds memory
+        log(f"verdict {by}: first arrivals up to {arr_max}; KF's scratch "
+            f"{4 << bf_shift} bytes, {free} free")
+    if by == "KF":
         fp, keep = adjudicate_sketch(
             ret, as_i32(arr), n.clamp(max=0x7FFFFFFF).to(torch.int32),
             bf_shift, n_hashes)

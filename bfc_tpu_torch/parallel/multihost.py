@@ -19,18 +19,27 @@ one.  NCCL takes one card a rank: with more ranks on a host than cards it
 raises before init_process_group.  With --backend gloo, ranks beyond the
 card count share cards as cuda:(LOCAL_RANK % device_count), and the
 exchanges go through host memory.
+
+Stdin belongs to the launcher: it reads stdin once into a file and hands
+that file to the first `-` operand, and an empty file to every later one
+(the correction pass of a lone `-` included), since a second pass over
+stdin finds it consumed; the ranks start with stdin closed.  A torchrun
+worker has no launcher to do this, so in a world larger than one it
+refuses `-`.
 """
 
 from __future__ import annotations
 
 import datetime
+import getopt
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from typing import List, Optional
+from typing import BinaryIO, List, Optional, Tuple
 
 TIMEOUT = datetime.timedelta(minutes=30)  # any one collective
 GRACE_S = 30.0  # how long the launcher waits for peers of a failed rank
@@ -54,6 +63,40 @@ def device_for(backend: str, local_rank: int, local_world: int,
     return f"cuda:{local_rank % n}"
 
 
+def split_operands(argv: List[str]) -> Tuple[List[str], List[str]]:
+    """(options, operands) of a CLI argv, as the CLI's getopt splits it;
+    an argv it rejects is all options (the CLI reports it)."""
+    from ..cli import LONG_OPTS, SHORT_OPTS
+
+    try:
+        _, args = getopt.getopt(argv, SHORT_OPTS, LONG_OPTS)
+    except getopt.GetoptError:
+        return list(argv), []
+    n = len(argv) - len(args)
+    return list(argv[:n]), list(args)
+
+
+def spool_stdin(argv: List[str], tmp: str,
+                stdin: Optional[BinaryIO] = None) -> List[str]:
+    """argv with its `-` operands replaced by files in tmp: the first by
+    one holding all of stdin (or `stdin`), every later one by an empty
+    file.  A lone `-` also gets the empty file as its correction input,
+    which the single-device run reads from the consumed stream."""
+    opts, args = split_operands(argv)
+    if "-" not in args:
+        return list(argv)
+    spooled, empty = os.path.join(tmp, "stdin"), os.path.join(tmp, "empty")
+    with open(spooled, "wb") as f:
+        shutil.copyfileobj(stdin or sys.stdin.buffer, f, 1 << 24)
+    open(empty, "wb").close()
+    first = args.index("-")
+    args = [a if a != "-" else spooled if i == first else empty
+            for i, a in enumerate(args)]
+    if len(args) == 1:
+        args.append(empty)
+    return opts + args
+
+
 def worker_main(argv: List[str], backend: Optional[str] = None,
                 report_path: Optional[str] = None) -> int:
     """Run the CLI as one rank of the mesh, configured from torchrun's
@@ -65,6 +108,11 @@ def worker_main(argv: List[str], backend: Optional[str] = None,
     world = int(os.environ.get("WORLD_SIZE", "1"))
     local = int(os.environ.get("LOCAL_RANK", str(rank)))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    if world > 1 and "-" in split_operands(argv)[1]:
+        raise RuntimeError(
+            f"stdin (`-`) in a world of {world} ranks: every rank would read "
+            "its own part of the stream; pass a file, or run through the "
+            "launcher (--mesh N or --launch N), which reads stdin once")
     cpu = "--cpu" in argv
     backend = backend or ("gloo" if cpu else "nccl")
     dev = device_for(backend, local, local_world, cpu)
@@ -128,13 +176,17 @@ def wait_all(procs: List[subprocess.Popen], grace_s: float = GRACE_S) -> int:
 
 
 def launch(nproc: int, argv: List[str], backend: Optional[str] = None,
-           stdout=None, report_path: Optional[str] = None) -> int:
+           stdout=None, report_path: Optional[str] = None,
+           stdin: Optional[BinaryIO] = None) -> int:
     """Spawn nproc local ranks running the CLI with argv; rank 0's stdout
     passes through (or into `stdout`).  The ranks meet through a file in
-    a fresh temporary directory.  Returns the largest exit code."""
+    a fresh temporary directory, which also holds stdin (or `stdin`) read
+    once where an operand is `-` (spool_stdin).  Returns the largest exit
+    code."""
     pkg_root = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with tempfile.TemporaryDirectory(prefix="bfc_mesh_") as tmp:
+        argv = spool_stdin(argv, tmp, stdin)
         procs = []
         for r in range(nproc):
             env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(nproc),
@@ -148,7 +200,7 @@ def launch(nproc: int, argv: List[str], backend: Optional[str] = None,
             if report_path and r == 0:
                 cmd += ["--report", report_path]
             procs.append(subprocess.Popen(
-                cmd + ["--"] + list(argv), env=env,
+                cmd + ["--"] + list(argv), env=env, stdin=subprocess.DEVNULL,
                 stdout=(stdout if r == 0 else subprocess.DEVNULL)))
         return wait_all(procs)
 

@@ -1,8 +1,9 @@
-"""Smoke run of bfc_tpu_torch on one CUDA card: builds the fourteen
+"""Smoke run of bfc_tpu_torch on one CUDA card: builds the eighteen
 kernels, drives the count + correct main path and the trim path (-1) at
 E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
-(-d/-r), and holds every kernel against its plain PyTorch version.
+(-d/-r), then the probe path (chip_probe.py), and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -44,7 +45,9 @@ Phases (any failure raises; nothing is caught):
    (spectrum_host.adjudicate_replay_np) and the sort formulation; KG on
    the aggregate's kept rows; KH on an 8,192-read trim batch.  Then the
    card's -1 -k51 count of the first 80,000 reads must give the plain
-   CPU run's aggregate, keep set and Bloom bits.
+   CPU run's aggregate, keep set and Bloom bits; and `-1 -k51 -b35` on
+   those reads, where KF's 128 GiB of scratch is not free, must take the
+   verdict from KI (KF silent) and hash equal to the --cpu run.
 7. The main path with the device finalize (device_finalize=True, as
    BFC_TPU_DEVICE_FINALIZE=1 selects it) on the same reads, counts zeroed
    just before and read just after: KA, KB, KJ, KF, KK, KL, KC and KD must
@@ -72,7 +75,9 @@ Phases (any failure raises; nothing is caught):
    memory.  Each rank's launch counts start at 0 in its new process and
    are read at its end; in every rank KA, KM, KB, KJ, KI, KK, KL, KC and
    KD must have launched and KE and KF not, and each output must hash as
-   phase 2's.  A rank that fails fails the run.
+   phase 2's.  A rank that fails fails the run.  Then (c) one NCCL rank
+   reading the counting input from stdin (`--mesh 1 -s 5m - reads.fq <
+   reads.fq`, which the launcher spools once) must hash as phase 2's.
 11. KM against its plain version: by the prefix rule on the counting
    batch's KA rows (16,384 reads x 128 slots) at R = 2, 4 and 8, and by
    the Bloom-block rule on the main fold's (ret, arrival) rows at R = 2
@@ -95,9 +100,19 @@ Phases (any failure raises; nothing is caught):
 14. -r: the reads corrected from phase 2's dump on the card (KC and KD
    must launch, KA not), then over two gloo ranks with the sharded table
    (KN in every rank); both outputs must hash as phase 2's.
+15. The probe path (chip_probe.run): every pl.pallas_call site of the TPU
+   probe scripts at its own shapes, and KO and KR over 256 MiB, through
+   KO-KR in every mode and variant, launch counts zeroed just before and
+   read just after (each of KO-KR must have launched); each output held
+   exactly against its plain version, then timed beside its plain version
+   and the matching PyTorch library call.
 
 The tolerance is exact equality throughout: every output is an integer.
-Kernel times are CUDA-event means over repeated launches after a warm-up.
+Kernel times of KA-KN are CUDA-event means of repeated wrapper calls
+from Python after a warm-up, the host's cost of a call included; KO-KR's
+are the median replay of a CUDA graph of repeated calls (chip_probe.py),
+the host's cost excluded.  Each row of the kernels line says which
+("timing").
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
@@ -112,7 +127,6 @@ import hashlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -139,14 +153,11 @@ from bfc_tpu_torch.ops.spectrum import IntProbe
 from bfc_tpu_torch.opts import Opts
 from bfc_tpu_torch.parallel import multihost
 
-# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM3 at 3.35 TB/s.  The 32-bit integer pipe has 64 lanes per SM, one op
-# each a clock: 64 x 132 SMs x 1.98 GHz boost = 16.7e12 ops/s (half the
-# 67 TFLOP/s fp32 figure, which counts an FMA as two flops on 128 lanes).
-# A u64 add, shift or logic op counts as two 32-bit integer ops.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-SECTOR = 32  # bytes of one random device-memory access
+import chip_probe
+from chip_probe import SECTOR, bound, card_line, compare
+
+# A u64 add, shift or logic op counts as two 32-bit integer ops (the peak
+# rates and bound are chip_probe.py's).
 # 32-bit integer ops per unit of work, counted from the kernels' source:
 # one canonical hash + shard split ~60 u64 ops; a probe adds ~20 more.
 OPS_KMER = 2 * 60
@@ -171,18 +182,11 @@ TRIM_K = 51                     # README's trim command: -1 -k51 (-b33)
 TRIM_B, TRIM_L = 8192, 128      # Trimmer.trim_file's batch (L padded to 32)
 ABSENT_KEYS = 1_000_000         # seeded keys probed in both tables
 FAR = 1 << 33                   # arrivals from here take the KI verdict
+WIDE_B = 35                     # -b35: KF's scratch (128 GiB) is not free
 
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 # --------------------------------------------------------------------------
@@ -255,29 +259,6 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def compare(got, want):
-    """(max absolute difference, number of differing elements) over
-    matching output tensors; a shape mismatch counts as (inf, -1)."""
-    worst, n_diff = 0.0, 0
-    for g, w in zip(got, want):
-        if g is None and w is None:
-            continue
-        if g is None or w is None or g.shape != w.shape:
-            return float("inf"), -1
-        ne = g != w
-        if bool(ne.any()):
-            n_diff += int(ne.sum())
-            d = float((g[ne].double() - w[ne].double()).abs().max())
-            worst = max(worst, d, 1.0)
-    return worst, n_diff
-
-
-def bound(bytes_moved: float, int_ops: float):
-    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_o = int_ops / INT32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def count_batch(bases, quals, opt, dev):
@@ -693,6 +674,31 @@ def check_trim_head(fq: Path, opt, dev):
     return got["n_aggregated"], got["n_kept"], TT.popcount(bw.words)
 
 
+def check_trim_wide(fq: Path, tmp: Path):
+    """`-1 -k51 -b35` on fq, on the card and on the CPU: KF's 4 * 2^35
+    bytes of scratch are not free on the card, so the verdict must be
+    KI's with KF silent, and the outputs must hash equal.  Returns (the
+    card's report, launches)."""
+    o = Opts()
+    o.k = TRIM_K
+    o.filter_mode = True
+    o.bf_shift = WIDE_B
+    out, cpu_out = tmp / "trimmed_b35.fq", tmp / "trimmed_b35_cpu.fq"
+    rep, launches, _ = drive(o, fq, out)
+    if rep["verdict"] != "KI":
+        fail(f"-1 -b{WIDE_B} took the {rep['verdict']} verdict, not KI")
+    need_launched(launches, ("first_occurrence", "bloom_build",
+                             "max_streak"), f"-1 -b{WIDE_B}")
+    need_silent(launches, ("bloom_adjudicate",), f"-1 -b{WIDE_B}")
+    with open(cpu_out, "wb") as sink:
+        DP.run_device(o, str(fq), sink=sink, device="cpu")
+    if file_hash(out) != file_hash(cpu_out):
+        fail(f"-1 -b{WIDE_B}: the card's output differs from the CPU's")
+    out.unlink()
+    cpu_out.unlink()
+    return rep, launches
+
+
 def same_spectrum(got, want) -> bool:
     return (got.n_entries == want.n_entries and got.mode == want.mode
             and np.array_equal(got.hist, want.hist)
@@ -846,20 +852,22 @@ def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
 
 
 def drive_mesh(fq: Path, out: Path, n: int, backend: str, tmp: Path,
-               shard_table: bool = False, flags=()):
+               shard_table: bool = False, flags=(), operands=None,
+               stdin=None):
     """The main path over n ranks through the launcher (`--mesh n -s 5m`,
-    then flags), rank 0's stdout into out; shard_table sets
-    BFC_TPU_SHARD_TABLE=1 for the ranks.  Returns rank 0's report, which
-    holds every rank's launch counts (launches_by_rank) and the phase
-    walls."""
+    then flags and operands, by default fq), rank 0's stdout into out;
+    stdin feeds a `-` operand; shard_table sets BFC_TPU_SHARD_TABLE=1 for
+    the ranks.  Returns rank 0's report, which holds every rank's launch
+    counts (launches_by_rank) and the phase walls."""
     rep_path = tmp / f"mesh_{backend}_{n}.json"
     env = os.environ.copy()
     os.environ["BFC_TPU_SHARD_TABLE"] = "1" if shard_table else "0"
     try:
         with open(out, "wb") as sink:
-            rc = multihost.launch(n, ["-s", "5m", *flags, str(fq)],
+            rc = multihost.launch(n, ["-s", "5m", *flags,
+                                      *(operands or (str(fq),))],
                                   backend=backend, stdout=sink,
-                                  report_path=str(rep_path))
+                                  report_path=str(rep_path), stdin=stdin)
     finally:
         os.environ.clear()
         os.environ.update(env)
@@ -1077,6 +1085,10 @@ TRIM_KERNELS = ("kmer_stream", "run_combine", "pack_pull",
 MAIN_DEVICE_KERNELS = ("kmer_stream", "run_combine", "derive_ret",
                        "bloom_adjudicate", "finalize_counts", "cuckoo_build",
                        "kcov_island", "ec1_search")
+TIMING_EVENTS = ("events: mean of wrapper calls from Python, host cost "
+                 "included")
+TIMING_GRAPH = (f"graph: median of {chip_probe.REPLAYS} replays of "
+                f"{chip_probe.REPS} calls, host cost excluded")
 TRIM_DEVICE_KERNELS = ("kmer_stream", "run_combine", "bloom_adjudicate",
                        "bloom_build", "max_streak")
 MESH_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
@@ -1085,6 +1097,36 @@ MESH_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
 SHARDED_KERNELS = ("kmer_stream", "route_rows", "run_combine", "derive_ret",
                    "first_occurrence", "finalize_counts",
                    "cuckoo_build_local", "kcov_island", "ec1_search")
+
+
+def probe_kernel_rows(probe_rows, launches):
+    """The kernels line's rows of KO-KR: each at its representative site
+    (chip_probe.REPRESENTATIVE), every site's numbers under "sites"."""
+    rows = []
+    for tag, name in chip_probe.KERNEL.items():
+        mine = [r for r in probe_rows if r["kernel"] == tag]
+        site, mode = chip_probe.REPRESENTATIVE[tag]
+        r = next(x for x in mine if (x["site"], x["mode"]) == (site, mode))
+        rows.append({
+            "name": name, "route": "cuda", "source": chip_probe.SOURCE[tag],
+            "replaces": r["replaces"].split(" ")[0],
+            "launches": launches[name],
+            "launches_by_path": {"probe": launches[name]},
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "mismatches": sum(x["mismatches"] for x in mine),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_comparable": r["bound_comparable"],
+            "library_ms": r["library_ms"], "library": r["library"],
+            "timing": TIMING_GRAPH, "site": f"{site} {mode}".strip(),
+            "sites": {f"{x['site']} {x['mode']}".strip(): {
+                k: x.get(k) for k in (
+                    "replaces", "steps", "queries", "table_entries", "ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "bound_comparable", "ns_per_step", "ns_per_gather",
+                    "sectors_per_s")}
+                for x in mine}})
+    return rows
 
 
 def main() -> int:
@@ -1231,6 +1273,13 @@ def main() -> int:
         print(f"trim head count: the card's -1 count of the first "
               f"{HEAD_READS} reads equals the plain run on the CPU ({n_agg} "
               f"k-mers aggregated, {n_kept} kept, {n_bits} Bloom bits set); "
+              f"{time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        wrep, wlaunches = check_trim_wide(head, tmp)
+        print(f"trim -b{WIDE_B} on the first {HEAD_READS} reads: verdict "
+              f"{wrep['verdict']} (KF's {4 << WIDE_B} bytes of scratch not "
+              f"free), output byte-identical to the --cpu run; "
+              f"{wrep['reads_kept']} reads kept; launches {wlaunches}; "
               f"{time.time() - t0:.1f} s", flush=True)
 
         # ---- the main path with the device finalize
@@ -1407,6 +1456,18 @@ def main() -> int:
                     for name in SOURCES}
             print(f"mesh outputs ({'sharded' if sharded else 'replicated'} "
                   "table) byte-identical to the main path's", flush=True)
+        mout = tmp / "corrected_mesh_stdin.fq"
+        with open(fq, "rb") as f:
+            mrep = drive_mesh(fq, mout, 1, "nccl", tmp,
+                              operands=("-", str(fq)), stdin=f)
+        check_mesh_run(mrep, 1, "nccl", n_reads, MESH_KERNELS,
+                       ("pack_pull", "bloom_adjudicate"), mout, main_hash,
+                       "replicated")
+        mout.unlink()
+        print(f"main path over 1 nccl rank counting from stdin (`- "
+              f"reads.fq`): counting {mrep['count_s']:.2f} s, correction "
+              f"{mrep['correct_s']:.2f} s; output byte-identical to the "
+              "main path's", flush=True)
 
         # ---- -r: the reads corrected from phase 2's dump
         rout = tmp / "corrected_restored.fq"
@@ -1436,6 +1497,23 @@ def main() -> int:
             name: sum(ls[name] for ls in mrep["launches_by_rank"])
             for name in SOURCES}
         print("-r outputs byte-identical to the main path's", flush=True)
+
+        # ---- the probe path (phase 15)
+        t0 = time.time()
+        probe_rows, probe_launches = chip_probe.run(dev)
+        need_launched(probe_launches, tuple(chip_probe.KERNEL.values()),
+                      "the probe path")
+        for r in probe_rows:
+            lib = r["library_ms"]
+            print(f"probe {r['site']} {r['kernel']} {r['mode']}: "
+                  f"{r['ms']:.4f} ms ({r['ns_per_step']:.1f} ns a step), "
+                  f"plain {r['plain_ms']:.3f} ms, library "
+                  f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); mismatches "
+                  f"{r['mismatches']}", flush=True)
+        print(f"probe path: {len(probe_rows)} sites equal to their plain "
+              f"versions; launches {probe_launches}; "
+              f"{time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1466,7 +1544,7 @@ def main() -> int:
                "mismatches": mism,
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-               "library_ms": None}
+               "library_ms": None, "timing": TIMING_EVENTS}
         for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches",
                       "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
                       "rows_sent", "ms_fold", "plain_ms_fold",
@@ -1484,6 +1562,7 @@ def main() -> int:
             row["merges_checked"], row["max_merge_rows"] = \
                 res["run_combine_merges"][1:]
         rows.append(row)
+    rows += probe_kernel_rows(probe_rows, probe_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
-"""The fourteen CUDA kernels against their plain PyTorch versions on a
+"""The eighteen CUDA kernels against their plain PyTorch versions on a
 card, the trim path and the device finalize on the card against the same
-paths on the CPU, and the mesh path (one NCCL rank, two gloo ranks
-sharing the card), with the table replicated and sharded, against the
-single-device run.
+paths on the CPU (also at -b35, where the verdict is KI's), and the mesh
+path (one NCCL rank, two gloo ranks sharing the card), with the table
+replicated and sharded, against the single-device run.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -24,6 +24,7 @@ from bfc_tpu_torch.models import device_pipeline as TDP
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as ann
 from bfc_tpu_torch.ops import kmer as kops
+from bfc_tpu_torch.ops import probe
 from bfc_tpu_torch.ops import route
 from bfc_tpu_torch.ops import search as srch
 from bfc_tpu_torch.ops import spectrum as spec
@@ -161,6 +162,76 @@ def test_trim_path_matches_cpu(card, tmp_path, monkeypatch):
     got = TDP.run_device(opt, str(fq), device=card, report=rep)
     assert rep["verdict"] == "KF" and rep["reads_kept"] > 0
     assert got == TDP.run_device(opt, str(fq), device="cpu")
+
+
+def test_trim_at_b35_takes_ki(card, tmp_path):
+    """-1 -k51 -b35: KF would need 128 GiB of scratch, so the verdict is
+    KI's, KF never launches, and the output equals the CPU run's."""
+    b, q = _reads()
+    fq = _write_fq(tmp_path / "reads.fq", b, q)
+    opt = Opts()
+    opt.k = 51
+    opt.bf_shift = 35
+    opt.filter_mode = True
+    rep = {}
+    kernels.reset_launches()
+    got = TDP.run_device(opt, str(fq), device=card, report=rep)
+    assert rep["verdict"] == "KI" and rep["reads_kept"] > 0
+    assert kernels.KF.launches == 0 and kernels.KI.launches == 1
+    assert got == TDP.run_device(opt, str(fq), device="cpu")
+
+
+def _probe_idx(rng, shape, n):
+    idx = rng.integers(0, n, shape).astype(np.int32)
+    idx.reshape(-1)[:3] = [-1, n, (1 << 31) - 1]   # taken modulo n
+    return torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("steps", [1, 4, 16])
+def test_ko_kr_match_plain(card, steps):
+    rng = np.random.default_rng(steps)
+    N = 1 << 20
+    tab, hi = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, N).astype(
+        np.int32)) for _ in range(2))
+    hi[::3] = torch.from_numpy(rng.integers(-(1 << 17), 1 << 17,
+                                            len(hi[::3])).astype(np.int32))
+    idx = _probe_idx(rng, 50_000, N)
+    for fn, args in ((probe.flat_gather, (tab, idx)),
+                     (probe.two_plane, (tab, hi, idx))):
+        want = fn(*args, steps=steps)
+        got = fn(*(a.to(card) for a in args), steps=steps)
+        torch.cuda.synchronize()
+        _eq([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("mode", [probe.ROW, probe.COLUMN, probe.LANE])
+@pytest.mark.parametrize("steps", [1, 16])
+def test_kp_matches_plain(card, mode, steps):
+    rng = np.random.default_rng(steps)
+    R = 8192 if mode != probe.LANE else 2000
+    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (R, 128)).astype(
+        np.int32))
+    shape = {probe.ROW: (5000,), probe.COLUMN: (700, 128),
+             probe.LANE: (R, 128)}[mode]
+    idx = _probe_idx(rng, shape, 128 if mode == probe.LANE else R)
+    want = probe.tile_gather(tab, idx, steps, mode)
+    got = probe.tile_gather(tab.to(card), idx.to(card), steps, mode)
+    torch.cuda.synchronize()
+    _eq([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("variant", [probe.REGISTERS, probe.SHARED])
+def test_kq_matches_plain(card, variant):
+    rng = np.random.default_rng(7)
+    B = 2050
+    x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (B, 128)).astype(
+        np.int32))
+    pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
+    for steps in (1, 3, 16):
+        want = probe.onehot_passes(x, pos, steps, variant)
+        got = probe.onehot_passes(x.to(card), pos.to(card), steps, variant)
+        torch.cuda.synchronize()
+        _eq((got.cpu(),), (want,))
 
 
 @pytest.mark.parametrize("k", [21, 51])

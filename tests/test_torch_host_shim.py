@@ -2,7 +2,8 @@
 plain PyTorch versions.
 
 csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH), per-row (KB,
-KE, KF, KG, KJ, KK), per-block (KI), per-key (KL, KN) or per-tile (KM) body
+KE, KF, KG, KJ, KK), per-block (KI), per-key (KL, KN), per-tile (KM) or
+per-query, per-element and per-row (the probe kernels KO-KR) body
 as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
 over the reads, rows or tiles that one CUDA thread or block would take.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
@@ -25,6 +26,7 @@ from bfc_tpu_torch.models import counter as TC
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as tann
 from bfc_tpu_torch.ops import kmer as tk
+from bfc_tpu_torch.ops import probe as tprobe
 from bfc_tpu_torch.ops import route as troute
 from bfc_tpu_torch.ops import search as tsrch
 from bfc_tpu_torch.ops import spectrum as tspec
@@ -67,6 +69,17 @@ def shim(tmp_path_factory):
     lib.subtable_slots_host.argtypes = [LL, P, P, I, I, I, I, P, P, P, P]
     lib.km_count_host.argtypes = [LL, I, P, P, I, I, LL, P]
     lib.km_scatter_host.argtypes = [LL, I, P, P, I, I, LL] + [P] * 10
+    lib.ko_host.argtypes = [LL, P, LL, P, I, P, P]
+    lib.kp_row_host.argtypes = [LL, P, LL, P, I, P, P]
+    lib.kp_column_host.argtypes = [LL, P, LL, P, I, P, P]
+    lib.kp_lane_host.argtypes = [LL, P, P, I, P, P]
+    lib.kq_registers_host.argtypes = [LL, P, P, I]
+    lib.kq_shared_host.argtypes = [LL, P, P, I]
+    lib.kr_host.argtypes = [LL, P, P, LL, P, I, P, P]
+    for f in (lib.ko_host, lib.kp_row_host, lib.kp_column_host,
+              lib.kp_lane_host, lib.kq_registers_host, lib.kq_shared_host,
+              lib.kr_host):
+        f.restype = None
     for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
               lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
@@ -593,6 +606,86 @@ def test_km_body_matches_plain(shim, R, rule):
     for g, w in zip(outs, want.cols):
         if w is not None:
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _probe_idx(rng, shape, n):
+    """Start indices in [0, n), with some outside it (taken modulo n)."""
+    idx = rng.integers(0, n, shape).astype(np.int32)
+    flat = idx.reshape(-1)
+    flat[:4] = [-1, n, -(1 << 31), (1 << 31) - 1]
+    return torch.from_numpy(idx)
+
+
+def _empty_like(*ts):
+    return [torch.empty_like(t) for t in ts]
+
+
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_ko_body_matches_plain(shim, steps):
+    rng = np.random.default_rng(60 + steps)
+    N, Q = 1 << 10, 300
+    tab = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, N).astype(np.int32))
+    idx = _probe_idx(rng, Q, N)
+    want = tprobe.flat_gather_plain(tab, idx, steps)
+    got = _empty_like(*want)
+    shim.ko_host(Q, _p(tab), N, _p(idx), steps, *(_p(g) for g in got))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["row", "column", "lane"])
+@pytest.mark.parametrize("steps", [1, 16])
+def test_kp_body_matches_plain(shim, mode, steps):
+    rng = np.random.default_rng(70 + steps)
+    R = 32
+    tab = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, (R, 128)).astype(np.int32))
+    shape = {"row": (200,), "column": (40, 128), "lane": (R, 128)}[mode]
+    idx = _probe_idx(rng, shape, 128 if mode == "lane" else R)
+    want = tprobe.tile_gather_plain(tab, idx, steps, mode)
+    got = _empty_like(*want)
+    fn = getattr(shim, f"kp_{mode}_host")
+    if mode == "lane":
+        fn(R, _p(tab), _p(idx), steps, *(_p(g) for g in got))
+    else:
+        fn(shape[0], _p(tab), R, _p(idx), steps, *(_p(g) for g in got))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["registers", "shared"])
+@pytest.mark.parametrize("steps", [1, 2, 5])
+def test_kq_body_matches_plain(shim, variant, steps):
+    rng = np.random.default_rng(80 + steps)
+    B = 70
+    x = torch.from_numpy(
+        rng.integers(-(1 << 20), 1 << 20, (B, 128)).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
+    want = tprobe.onehot_passes_plain(x, pos, steps)
+    got = x.clone()
+    getattr(shim, f"kq_{variant}_host")(B, _p(got), _p(pos), steps)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hi_bits", [17, 30])
+@pytest.mark.parametrize("steps", [1, 4])
+def test_kr_body_matches_plain(shim, hi_bits, steps):
+    """hi from [-2^17, 2^17): both slots often match, negative values
+    too; from [-2^30, 2^30): nearly every probe misses."""
+    rng = np.random.default_rng(90 + steps + hi_bits)
+    N, Q = 1 << 12, 300
+    lo = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, N).astype(np.int32))
+    hi = torch.from_numpy(
+        rng.integers(-(1 << hi_bits), 1 << hi_bits, N).astype(np.int32))
+    idx = _probe_idx(rng, Q, N)
+    want = tprobe.two_plane_plain(lo, hi, idx, steps)
+    got = _empty_like(*want)
+    shim.kr_host(Q, _p(lo), _p(hi), N, _p(idx), steps,
+                 *(_p(g) for g in got))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _c_param_types(params: str):

@@ -1,8 +1,8 @@
 """The port imports torch, numpy and the standard library only.
 
-Parses every module of bfc_tpu_torch/ and chip_smoke.py and fails on an
-import of jax or of the JAX package bfc_tpu (module names matched
-exactly: bfc_tpu_torch shares the prefix)."""
+Parses every module of bfc_tpu_torch/, chip_smoke.py and chip_probe.py
+and fails on an import of jax or of the JAX package bfc_tpu (module names
+matched exactly: bfc_tpu_torch shares the prefix)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "bfc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "bfc_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_probe.py"]
 FORBIDDEN = ("jax", "bfc_tpu")
 
 

@@ -15,7 +15,11 @@ End to end, on datagen.standard_dataset (an 8 kb genome, 2,400 reads,
 -k17 -b22): `python -m bfc_tpu_torch --cpu --mesh 2` and `--mesh 4` are
 byte-identical to the single-device port and to bfc_tpu's scalar spec
 (models/pipeline.run); --mesh 4 with --batch 1199 leaves ranks without
-reads in the last batch.  Then the launcher's failure handling.  The
+reads in the last batch.  With `-` operands (stdin fed from the dataset
+file) --mesh 2 gives the single-device port's bytes: `- reads.fq`,
+`- -` and a lone `-`, each under a 120 s subprocess timeout, so a rank
+that blocks on a shared stdin fails the test instead of the suite.  Then
+the launcher's stdin spooling and failure handling.  The
 sharded table (BFC_TPU_SHARD_TABLE=1) is tests/test_torch_sharded.py's.
 
 The ranks meet through a file in tmp_path.  This module imports neither
@@ -240,13 +244,13 @@ def test_payloads_match_payloads_sharded(ranks, jax_mesh):
 # End to end, through the CLI and the launcher
 # --------------------------------------------------------------------------
 
-def _port_cli(*args, env=None, check=True):
+def _port_cli(*args, env=None, check=True, stdin=None, timeout=None):
     # one intra-op thread a process: the ranks share the suite's cores
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                **(env or {}))
     return subprocess.run([sys.executable, "-m", "bfc_tpu_torch", "--cpu",
                            *args], cwd=ROOT, env=env, capture_output=True,
-                          check=check)
+                          check=check, stdin=stdin, timeout=timeout)
 
 
 @pytest.fixture(scope="module")
@@ -281,6 +285,55 @@ def test_cli_mesh_matches_single_device(e2e, R, flags):
     r = _port_cli("--mesh", str(R), *flags, "-k17", "-b22", fq)
     assert r.stdout == single == spec_out
     assert f"over {R} devices".encode() in r.stderr
+
+
+@pytest.mark.parametrize("operands", [("-", "FQ"), ("-", "-"), ("-",)],
+                         ids=["stdin_file", "stdin_stdin", "stdin"])
+def test_cli_mesh_reads_stdin_once(e2e, operands):
+    """The launcher reads stdin once: the first `-` counts all of it, and a
+    later `-` (or a lone `-`'s correction pass) finds it consumed, as the
+    single-device run does."""
+    fq, single, _ = e2e
+    args = [fq if a == "FQ" else a for a in operands]
+    if operands == ("-", "FQ"):
+        want = single
+    else:
+        with open(fq, "rb") as f:
+            want = _port_cli("-k17", "-b22", *args, stdin=f,
+                             timeout=120).stdout
+        assert want == b""
+    with open(fq, "rb") as f:
+        r = _port_cli("--mesh", "2", "-k17", "-b22", *args, stdin=f,
+                      timeout=120)
+    assert r.stdout == want
+    assert b"over 2 devices" in r.stderr
+
+
+def test_spool_stdin_replaces_dash_operands(tmp_path):
+    import io
+
+    from bfc_tpu_torch.parallel import multihost
+
+    src = io.BytesIO(b"@r\nACGT\n+\nIIII\n")
+    got = multihost.spool_stdin(["-k17", "-d", "-", "-", "x.fq", "-"],
+                                str(tmp_path), src)
+    spooled, empty = str(tmp_path / "stdin"), str(tmp_path / "empty")
+    assert got == ["-k17", "-d", "-", spooled, "x.fq", empty]
+    assert Path(spooled).read_bytes() == b"@r\nACGT\n+\nIIII\n"
+    assert Path(empty).read_bytes() == b""
+    assert multihost.spool_stdin(["-"], str(tmp_path),
+                                 io.BytesIO()) == [spooled, empty]
+    assert multihost.spool_stdin(["a.fq"], str(tmp_path),
+                                 io.BytesIO()) == ["a.fq"]
+
+
+def test_torchrun_worker_refuses_stdin(monkeypatch):
+    from bfc_tpu_torch.parallel import multihost
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="stdin"):
+        multihost.worker_main(["--cpu", "-k17", "-"])
 
 
 def test_trim_ignores_the_mesh(e2e):

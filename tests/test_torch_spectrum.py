@@ -301,3 +301,19 @@ def test_derive_ret_matches_jax(k):
                           torch.from_numpy(keybody.view(np.int64)), k, l_pre)
     np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
     assert (want >> np.uint64(63)).any() == (k >= 32)
+
+
+@pytest.mark.parametrize("arr_max,bf_shift,free,want", [
+    (10, 24, None, "KF"),                 # the CPU: no scratch limit
+    (10, 24, 4 << 24, "KF"),              # exactly enough scratch
+    (10, 24, (4 << 24) - 1, "KI"),        # one byte short
+    (10, 35, 80 * 10**9, "KI"),           # -b35 on an 80 GB card
+    (10, 37, 80 * 10**9, "KI"),           # -s 3g sets -b37
+    (10, 33, 80 * 10**9, "KF"),           # -b33 needs 32 GiB
+    (tspec.ARRIVAL_LIMIT, 24, None, "KI"),  # arrivals past 2^32 - 1
+    (tspec.ARRIVAL_LIMIT - 1, 24, None, "KF"),
+])
+def test_verdict_route(arr_max, bf_shift, free, want):
+    """KI wherever KF's 4 * 2^b bytes of scratch are not free, or an
+    arrival reaches 2^32 - 1; KF otherwise."""
+    assert tspec.verdict_route(arr_max, bf_shift, free) == want

@@ -46,7 +46,7 @@ def usage(fp, o: Opts) -> None:
     fp.write("  -v           show version number\n")
     fp.write("  -h           show command line help\n")
     fp.write("Device options:\n")
-    fp.write("  --batch INT     reads per correction batch [8192]\n")
+    fp.write("  --batch INT     reads per correction batch [65536] (trim: [8192])\n")
     fp.write("  --cpu           run on the CPU (the kernels' plain versions)\n")
     fp.write("  --mesh INT      shard over INT devices\n")
 
@@ -81,7 +81,7 @@ def main(argv: Optional[List[str]] = None,
     argv = sys.argv[1:] if argv is None else argv
     opt = Opts()
     no_ec = False
-    batch_reads = 8192
+    batch_reads = None
     device = "cuda"
     mesh = 1
     in_hash = out_hash = None

@@ -15,7 +15,7 @@
 // below them, qlow the identity bits below the top c_bits = db + cb_local,
 // and s2 = s1 ^ subtable_alt(qlow).  KC and KD read the owner's sub-table
 // through an array of device addresses, a peer's mapped by CUDA IPC;
-// cuckoo_probe_sharded replaces sharded_cuckoo_lookup (:368), whose
+// cuckoo_addr's sharded branch replaces sharded_cuckoo_lookup (:368), whose
 // request/response all_to_all a thread in mid-search could not join.
 #pragma once
 #include "kmer.cuh"
@@ -88,27 +88,44 @@ BFC_HD int cuckoo_pick(uint64_t e1, uint64_t e2, uint64_t qlow) {
     return -1;
 }
 
-// 14-bit payload of (shard, keybody) in the sharded table, or -1.
-BFC_HD int cuckoo_probe_sharded(const SpecParams& sp, int64_t shard,
-                                int64_t keybody) {
-    int cb_local = sp.c_bits - sp.db;
+// The two slots a probe reads and the identity bits it matches.  A probe
+// splits into cuckoo_addr (arithmetic only) and cuckoo_pick on the two
+// loaded entries, so a caller can issue the loads of several probes
+// before it uses any (KD's search step).
+struct ProbeAddr {
+    const uint64_t* p1;
+    const uint64_t* p2;
+    uint64_t qlow;
+};
+
+// The slots of (shard, keybody): in the replicated table, or in the
+// owner's sub-table of the sharded one.
+BFC_HD ProbeAddr cuckoo_addr(const SpecParams& sp, int64_t shard,
+                             int64_t keybody) {
+    ProbeAddr a;
     uint64_t pk = posk64(shard, keybody, sp.l_pre, sp.kb_bits);
-    const uint64_t* t = sp.subtables[subtable_owner(pk, sp.db)];
-    uint64_t qlow = id_low(shard, keybody, sp.l_pre, sp.kb_bits, sp.c_bits);
-    uint64_t s1 = subtable_slot(pk, sp.c_bits, cb_local);
-    uint64_t s2 = s1 ^ subtable_alt(qlow, cb_local);
-    return cuckoo_pick(t[s1], t[s2], qlow);
+    a.qlow = id_low(shard, keybody, sp.l_pre, sp.kb_bits, sp.c_bits);
+    if (sp.subtables) {
+        int cb_local = sp.c_bits - sp.db;
+        const uint64_t* t = sp.subtables[subtable_owner(pk, sp.db)];
+        uint64_t s1 = subtable_slot(pk, sp.c_bits, cb_local);
+        a.p1 = t + s1;
+        a.p2 = t + (s1 ^ subtable_alt(a.qlow, cb_local));
+    } else {
+        uint64_t s1 = pk >> (64 - sp.c_bits);
+        a.p1 = sp.table + s1;
+        a.p2 = sp.table + (s1 ^ cuckoo_alt(a.qlow, sp.c_bits));
+    }
+    return a;
 }
 
-// 14-bit payload of (shard, keybody), or -1 when absent.
-BFC_HD int cuckoo_probe(const SpecParams& sp, int64_t shard,
-                        int64_t keybody) {
-    if (sp.subtables) return cuckoo_probe_sharded(sp, shard, keybody);
-    uint64_t pk = posk64(shard, keybody, sp.l_pre, sp.kb_bits);
-    uint64_t s1 = pk >> (64 - sp.c_bits);
-    uint64_t qlow = id_low(shard, keybody, sp.l_pre, sp.kb_bits, sp.c_bits);
-    uint64_t s2 = s1 ^ cuckoo_alt(qlow, sp.c_bits);
-    return cuckoo_pick(sp.table[s1], sp.table[s2], qlow);
+// A read-only load of a table entry (the read-only data path on the card).
+BFC_HD uint64_t table_load(const uint64_t* p) {
+#ifdef __CUDA_ARCH__
+    return (uint64_t)__ldg((const unsigned long long*)p);
+#else
+    return *p;
+#endif
 }
 
 #ifdef __CUDA_ARCH__
@@ -163,11 +180,17 @@ BFC_HD bool cuckoo_insert(uint64_t* table, uint64_t e, uint64_t slot,
     return false;
 }
 
-// Payload of the k-mer held in the 4-plane state x (CountHash.kmer_occ).
-BFC_HD int kmer_occ(const SpecParams& sp, const uint64_t x[4]) {
+// The probe address of the k-mer held in the 4-plane state x.
+BFC_HD ProbeAddr kmer_addr(const SpecParams& sp, const uint64_t x[4]) {
     uint64_t h0, h1;
     kmer_hash(x, sp.k, &h0, &h1);
     int64_t shard, keybody;
     shard_keybody(h0, h1, sp.k, sp.l_pre, &shard, &keybody);
-    return cuckoo_probe(sp, shard, keybody);
+    return cuckoo_addr(sp, shard, keybody);
+}
+
+// Payload of the k-mer held in the 4-plane state x (CountHash.kmer_occ).
+BFC_HD int kmer_occ(const SpecParams& sp, const uint64_t x[4]) {
+    ProbeAddr a = kmer_addr(sp, x);
+    return cuckoo_pick(table_load(a.p1), table_load(a.p2), a.qlow);
 }

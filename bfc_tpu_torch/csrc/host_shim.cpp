@@ -29,20 +29,24 @@ void ka_host(const uint8_t* bases, const uint8_t* qok, const int32_t* lens,
     }
 }
 
-void kb_head_host(const int64_t* shard, const int64_t* keybody, long long N,
-                  int32_t* head) {
-    for (long long i = 0; i < N; i++) head[i] = kb_head(shard, keybody, i);
-}
-
-void kb_combine_host(long long N, const int32_t* head, const int64_t* cum,
-                     const int64_t* shard, const int64_t* keybody,
-                     const int64_t* arr, const int64_t* n, const int64_t* nh,
-                     const uint8_t* fh, const int64_t* ret, int64_t* o_shard,
-                     int64_t* o_keybody, int64_t* o_arr, int64_t* o_n,
-                     int64_t* o_nh, uint8_t* o_fh, int64_t* o_ret) {
-    for (long long i = 0; i < N; i++)
-        kb_combine(i, N, head, cum, shard, keybody, arr, n, nh, fh, ret,
-                   o_shard, o_keybody, o_arr, o_n, o_nh, o_fh, o_ret);
+// KB's tiles of `tile` rows, one after another; lazy: tiles past the
+// first publish only their aggregate, so every look-back walks to tile 0.
+// Returns the number of groups.
+long long kb_host(long long N, long long tile, int lazy, const int64_t* shard,
+                  const int64_t* keybody, const int64_t* arr,
+                  const int64_t* n, const int64_t* nh, const uint8_t* fh,
+                  const int64_t* ret, int64_t* o_shard, int64_t* o_keybody,
+                  int64_t* o_arr, int64_t* o_n, int64_t* o_nh, uint8_t* o_fh,
+                  int64_t* o_ret) {
+    KbCols c = {shard, keybody, arr, n, nh, fh, ret, o_shard, o_keybody,
+                o_arr, o_n, o_nh, o_fh, o_ret};
+    long long n_tiles = (N + tile - 1) / tile;
+    uint64_t* status = new uint64_t[n_tiles + 1]();
+    int64_t count = 0;
+    for (long long t = 0; t < n_tiles; t++)
+        kb_tile_serial(c, N, t, tile, status, lazy, &count);
+    delete[] status;
+    return count;
 }
 
 // table or subtables (a host array of 1 << db host addresses), as
@@ -59,28 +63,44 @@ void kc_host(const uint64_t* table, const uint64_t* const* subtables, int db,
     }
 }
 
+// KD's two passes as the kernel runs them, each by one worker taking
+// every read in turn: pass 1 with a stack of stack1 entries, pass 2 with
+// the full stack_cap over the reads pass 1 deferred (*n_deferred).
 void kd_host(const uint64_t* table, const uint64_t* const* subtables, int db,
              int k, int l_pre, int kb_bits, int c_bits, const int* ip, int B,
              int L, const uint8_t* bases, const uint8_t* q,
              const int32_t* lens, const uint8_t* lcov, const uint8_t* hcov,
-             const int32_t* isl, uint8_t* packed, int32_t* out) {
+             const int32_t* isl, uint8_t* packed, int32_t* out, int stack1,
+             int32_t* n_deferred) {
     KdParams P = {{table, k, l_pre, kb_bits, c_bits, subtables, db},
                   ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], ip[6],
                   ip[7], ip[8], ip[9], ip[10], ip[11]};
-    KdHeapEnt* heap = new KdHeapEnt[P.heap_cap];
+    size_t n = (size_t)B * L;
+    uint8_t* ec0 = new uint8_t[n + 1];
+    uint8_t* ec1 = new uint8_t[n + 1];
+    uint8_t* info = new uint8_t[n + 1];
+    int32_t ctr[3] = {0, 0, 0};
+    int32_t* retry = new int32_t[B + 1];
+    KdBatch bt = {B, L, bases, q, lens, lcov, hcov, isl, ec0, ec1, info,
+                  packed, out, ctr, retry};
+    KdKey* keys = new KdKey[P.heap_cap];
+    KdEnt* pool = new KdEnt[P.heap_cap];
     KdStackEnt* stack = new KdStackEnt[P.stack_cap];
-    uint8_t* ec0 = new uint8_t[L];
-    uint8_t* ec1 = new uint8_t[L];
-    for (int r = 0; r < B; r++) {
-        size_t o = (size_t)r * L;
-        kd_read(P, L, bases + o, q + o, lcov + o, hcov + o, lens[r],
-                isl + 3 * (size_t)r, ec0, ec1, heap, stack, packed + o,
-                out + (size_t)KD_N_OUT * r);
+    KdScratch S = {keys, 1, pool, stack,
+                   stack1 < P.stack_cap ? stack1 : P.stack_cap};
+    kd_worker(P, bt, S, 1);
+    if (S.stack_cap < P.stack_cap) {
+        S.stack_cap = P.stack_cap;
+        kd_worker(P, bt, S, 2);
     }
-    delete[] heap;
+    *n_deferred = ctr[1];
+    delete[] keys;
+    delete[] pool;
     delete[] stack;
+    delete[] retry;
     delete[] ec0;
     delete[] ec1;
+    delete[] info;
 }
 
 void ke_host(long long C, const int64_t* arr, const int64_t* n,

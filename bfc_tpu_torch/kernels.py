@@ -82,16 +82,17 @@ KA = Kernel("kmer_stream", {
     "ka_launch": [_P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P],
 })
 KB = Kernel("run_combine", {
-    "kb_head_launch": [_P, _P, _LL, _P, _P],
-    "kb_combine_launch": [_LL] + [_P] * 17,
+    "kb_launch": [_LL] + [_P] * 17,
+    "kb_tile_rows": [_P],
 })
 KC = Kernel("kcov_island", {
     "kc_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                   _P, _P, _P],
 })
 KD = Kernel("ec1_search", {
-    "kd_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
-    "kd_sizes": [_P, _P, _P],
+    "kd_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I] + [_P] * 14
+                 + [_I, _I, _LL, _I, _LL, _I, _P],
+    "kd_plan": [_I, _I, _P],
 })
 KE = Kernel("pack_pull", {
     "ke_launch": [_LL] + [_P] * 7,

@@ -118,9 +118,14 @@ class Corrector:
         n = len(lens0)
         L = max(int(lens0.max()) if n else 1, 1)
         bases = np.ascontiguousarray(bases0[:, :L])
-        inb = np.arange(L)[None, :] < lens0[:, None]
-        qv = rawq0[:, :L].astype(np.int32) - 33
-        qflag = np.where(has_q[:, None], qv >= opt.q, inb) & (bases <= 3)
+        # quality >= q on the raw ASCII bytes, with no wider copy of them
+        thr = min(max(33 + opt.q, 0), 256)
+        qflag = (rawq0[:, :L] >= thr if thr < 256
+                 else np.zeros((n, L), bool))
+        if not has_q.all():  # FASTA reads: every base in the read counts
+            inb = np.arange(L)[None, :] < lens0[:, None]
+            qflag = np.where(has_q[:, None], qflag, inb)
+        qflag &= bases <= 3
         dev = self.device
         b_t = torch.from_numpy(bases).to(dev)
         q_t = torch.from_numpy(qflag).to(dev)

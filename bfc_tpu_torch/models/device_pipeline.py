@@ -19,6 +19,7 @@ import torch
 
 from ..io.fastq import Read, format_corrected, pack_stats
 from ..io.writer import OutputWriter
+from ..ops import search as srch
 from ..ops.spectrum import ShardedTable
 from ..opts import Opts
 from ..parallel import comm, peer
@@ -45,9 +46,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
-                        batch_reads: int = 8192, mesh: bool = False
-                        ) -> Corrector:
+                        batch_reads: int = srch.CORRECT_BATCH,
+                        mesh: bool = False) -> Corrector:
     """Correct fn batch by batch and write the records in input order.
+    A batch is one launch of KC and one of KD: at most batch_reads reads,
+    and the reader ends it where its 4 MB block of text ends (search.py:
+    CORRECT_BATCH says why the default is not smaller).
 
     With mesh (data-parallel correction, bfc_tpu's device_pipeline.py:
     58-91) rank r of R corrects and formats rows [n r/R, n (r+1)/R) of
@@ -159,7 +163,7 @@ def shard_table_on(shard_table: Optional[bool] = None) -> bool:
 
 
 def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
-               no_ec: bool = False, batch_reads: int = 8192,
+               no_ec: bool = False, batch_reads: Optional[int] = None,
                count_batch_reads: int = 16384, sink=None,
                device=None, report: Optional[dict] = None,
                device_finalize: Optional[bool] = None,
@@ -168,8 +172,10 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     """Count, then correct (or, with opt.filter_mode, trim); returns the
     output text (reference stdout).
 
-    With `sink` (a binary file-like), records stream out as batches
-    finish and the return value is "".  device: "cuda" (the default) or
+    batch_reads: reads a correction batch (default CORRECT_BATCH) or a
+    trim batch (default Trimmer's 8,192).  With `sink` (a binary
+    file-like), records stream out as batches finish and the return
+    value is "".  device: "cuda" (the default) or
     "cpu", which runs every kernel's plain version instead.
     device_finalize: finalize the counting aggregate on the card rather
     than the host (default: BFC_TPU_DEVICE_FINALIZE=1).  A `report` dict
@@ -184,7 +190,10 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     counting (opt.k then becomes the dump's k); out_hash dumps it (-d).
     Trim mode ignores both, as bfc_tpu does.  The report's table is
     "sharded" or "replicated", beside its c_bits; dump_s is the -d
-    write's wall, in neither phase.
+    write's wall, in neither phase.  On a card it also holds the device
+    memory peaks of the counting (with -d) and of the correction alone
+    (count_peak_bytes, correct_peak_bytes); the correction's starts from
+    a reset of the peak.
 
     In a rank of a torch.distributed process group it runs the
     multi-device path (bfc_tpu's mesh_devices,
@@ -219,7 +228,10 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
         _sync(dev)
         t1 = time.time()
         trimmer = Trimmer(opt, bloom)
-        trimmer.trim_file(next_fn, out, batch_reads=batch_reads)
+        if batch_reads is None:
+            trimmer.trim_file(next_fn, out)
+        else:
+            trimmer.trim_file(next_fn, out, batch_reads=batch_reads)
         _sync(dev)
         if report is not None:
             report.update(info, count_s=t1 - t0, trim_s=time.time() - t1,
@@ -253,10 +265,15 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
             else:
                 ds.dump(out_hash)
         t2 = time.time()
+        if report is not None and dev.type == "cuda":
+            # the counting's peak, then the correction's alone
+            report["count_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         corr = None
         if not no_ec:
-            corr = correct_file_device(next_fn, opt, ds, out,
-                                       batch_reads=batch_reads, mesh=mesh)
+            corr = correct_file_device(
+                next_fn, opt, ds, out, mesh=mesh,
+                batch_reads=batch_reads or srch.CORRECT_BATCH)
             _sync(dev)
         sharded = isinstance(ds.table, ShardedTable)
         if sharded:
@@ -270,6 +287,9 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                 n_kept=ds.n_entries, spectrum=ds, n_fallback=n_fallback,
                 table="sharded" if sharded else "replicated",
                 c_bits=ds.c_bits)
+            if dev.type == "cuda":
+                report["correct_peak_bytes"] = torch.cuda.max_memory_allocated(
+                    dev)
             if sharded:
                 report.update(cb_local=ds.table.cb_local,
                               entries_by_rank=ds.entries_by_rank)

@@ -2,8 +2,10 @@
 
 Counterpart of bfc_tpu/ops/search.py:ec1dir_batch (:436) together with
 the greedy repair (annotate.py:greedy_k_batch, :170) and the rest of
-bfc_tpu/models/corrector.py:correct_core (:67-379).  One CUDA thread
-carries one read through bfc_ec1 (refmodel.ec1, :818).
+bfc_tpu/models/corrector.py:correct_core (:67-379).  A CUDA thread
+carries one read at a time through bfc_ec1 (refmodel.ec1, :818) and takes
+the next from a counter, on a grid of the threads the card holds at once
+(kd_plan); csrc/ec1_search.cu says why.
 
 The plain version is a loop over reads that runs the scalar model's own
 ec_first_kmer / ec_greedy_k / ec1dir on each read, probing the same
@@ -16,7 +18,7 @@ through sharded_cuckoo_lookup; KD probes its owner sub-tables directly).
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,14 @@ from .spectrum import IntProbe
 
 HEAP_CAP = 128    # the heap holds at most max_heap + 4 = 104 entries
 STACK_CAP = 4096  # search steps of one direction; beyond: scalar fallback
+# Reads a correction batch may hand to KD (correct_file_device's
+# default).  KD keeps 33,792 threads resident on an H100 (132 SMs x 4
+# blocks of 64) and takes 0.054 us a read at 65,536 reads against 0.20 at
+# 8,192, so the cap is set to where a launch gives each thread about two
+# reads.  The reader still ends a batch with its 4 MB block of text,
+# ~19,500 reads of 100 bp: reading on to fill 65,536 cost the host ~3 s a
+# 3M-read correction pass, ten times what KD saved (PERF.md section 6).
+CORRECT_BATCH = 65536
 
 # columns of the int32 [B, 8] result (csrc/ec1_search.cuh KD_*); PROBES
 # counts a read's table probes, zero when it overflowed
@@ -152,6 +162,48 @@ def ec1_search_plain(t, opt: Opts, mode: int, bases, q, lens,
     return torch.from_numpy(packed).to(dev), torch.from_numpy(out).to(dev)
 
 
+class KdPlan(NamedTuple):
+    """KD's launch plan on the current card (kd_plan in ec1_search.cu)."""
+
+    threads: int        # a block
+    blocks: int         # resident blocks: pass 1's grid at most
+    stack1: int         # pass 1's stack entries a thread
+    per1: int           # pass 1's scratch bytes a thread
+    per2: int           # pass 2's (the full stack_cap)
+    smem: int           # dynamic shared bytes a block (the heap keys)
+    registers: int      # a thread
+    local_bytes: int    # local memory a thread (spills)
+    blocks_per_sm: int
+    sms: int
+    n_out: int          # KD_N_OUT, the output columns
+    slot_bits: int      # KD_SLOT_BITS: heap_cap <= 2^slot_bits, and
+    #                     every total below 2^(31 - slot_bits)
+
+
+_plans = {}
+
+
+def kd_plan(heap_cap: int = HEAP_CAP, stack_cap: int = STACK_CAP) -> KdPlan:
+    """KD's occupancy-sized launch plan on the current card, cached."""
+    import ctypes
+
+    key = (torch.cuda.current_device(), heap_cap, stack_cap)
+    if key not in _plans:
+        plan = (ctypes.c_longlong * 12)()
+        rc = kernels.KD.call("kd_plan", heap_cap, stack_cap, plan)
+        if rc != 0:
+            raise RuntimeError(f"ec1_search.kd_plan: CUDA error {rc}")
+        p = KdPlan(*(int(v) for v in plan))
+        if p.n_out != N_OUT:
+            raise RuntimeError(f"KD writes {p.n_out} columns, expected "
+                               f"{N_OUT}")
+        if p.blocks < 1:
+            raise RuntimeError(f"KD cannot launch a block at heap_cap "
+                               f"{heap_cap}: {p}")
+        _plans[key] = p
+    return _plans[key]
+
+
 def ec1_search(t, opt: Opts, mode: int, bases, q, lens, lcov,
                hcov, isl, heap_cap: int = HEAP_CAP,
                stack_cap: int = STACK_CAP):
@@ -160,8 +212,8 @@ def ec1_search(t, opt: Opts, mode: int, bases, q, lens, lcov,
     bases u8 [B, L] codes, q bool [B, L] quality flags (False on N), lens
     i32 [B], lcov/hcov u8 [B, L] and isl i32 [B, 3] from KC.  Returns
     packed u8 [B, L] (final base | is_diff << 3 | q << 4 | input base <<
-    5; a read that is not corrected keeps its input) and out i32 [B, 7]
-    with the columns EC_CODE .. OVERFLOW.  Overflowed reads carry zeros
+    5; a read that is not corrected keeps its input) and out i32 [B, 8]
+    with the columns EC_CODE .. PROBES.  Overflowed reads carry zeros
     and their input; the caller corrects them with the scalar model."""
     B, L = bases.shape
     dev = bases.device
@@ -175,25 +227,34 @@ def ec1_search(t, opt: Opts, mode: int, bases, q, lens, lcov,
     if dev.type == "cpu":
         return ec1_search_plain(t, opt, mode, bases, q, lens, lcov, hcov,
                                 isl, heap_cap, stack_cap)
-    import ctypes
-
-    sizes = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
-    kernels.KD.call("kd_sizes", *(ctypes.byref(v) for v in sizes))
-    heap_ent, stack_ent, n_out = (v.value for v in sizes)
-    if n_out != N_OUT:
-        raise RuntimeError(f"KD writes {n_out} columns, expected {N_OUT}")
+    p = kd_plan(heap_cap, stack_cap)
+    if not 0 < heap_cap <= 1 << p.slot_bits:
+        raise ValueError(f"KD holds at most {1 << p.slot_bits} heap keys, "
+                         f"not {heap_cap}")
+    step_max = opt.w_ec + opt.w_ec_high + opt.w_absent + opt.w_absent_high
+    if (min(opt.w_ec, opt.w_ec_high, opt.w_absent, opt.w_absent_high) < 0
+            or step_max * stack_cap >= 1 << (31 - p.slot_bits)):
+        raise ValueError("KD's heap keys hold totals below "
+                         f"2^{31 - p.slot_bits}: penalty weights "
+                         f"{step_max} a step over {stack_cap} steps")
+    blocks1 = min(p.blocks, -(-B // p.threads))
+    nbytes = blocks1 * p.threads * p.per1
+    # pass 2 runs the reads pass 1 defers in the same scratch
+    blocks2 = max(1, nbytes // (p.threads * p.per2))
+    nbytes = max(nbytes, blocks2 * p.threads * p.per2)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     ec0 = torch.empty((B, L), dtype=torch.uint8, device=dev)
     ec1 = torch.empty_like(ec0)
-    heap = torch.empty((B * heap_cap * heap_ent,), dtype=torch.uint8,
-                       device=dev)
-    stack = torch.empty((B * stack_cap * stack_ent,), dtype=torch.uint8,
-                        device=dev)
+    info = torch.empty_like(ec0)
     packed = torch.empty((B, L), dtype=torch.uint8, device=dev)
     out = torch.empty((B, N_OUT), dtype=torch.int32, device=dev)
+    ctr = torch.empty((3,), dtype=torch.int32, device=dev)
+    retry = torch.empty((max(B, 1),), dtype=torch.int32, device=dev)
     ip = _iparams(opt, mode, heap_cap, stack_cap)
     kernels.KD.launch(
         "kd_launch", *spec.probe_args(t), t.k, t.l_pre, t.kb_bits, t.c_bits,
         ip.ctypes.data, B, L,
         *(a.data_ptr() for a in (bases, q, lens, lcov, hcov, isl, ec0, ec1,
-                                 heap, stack, packed, out)))
+                                 info, packed, out, scratch, ctr, retry)),
+        blocks1, p.stack1, p.per1, blocks2, p.per2, p.smem)
     return packed, out

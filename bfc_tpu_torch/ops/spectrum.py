@@ -13,7 +13,7 @@ plain search) and the helpers the host table build shares.
 
 ShardedTable is the prefix-sharded layout (ShardedCuckoo, :316): one
 sub-table a rank, built by kernel KN (cuckoo_build_local, :467) and read
-by cuckoo_probe_sharded inside KC and KD, which replaces
+by cuckoo_addr (its sharded branch) inside KC and KD, which replaces
 sharded_cuckoo_lookup (:368).
 
 bloom_probe_bits is the plain twin of csrc/bloom.cuh (spectrum.py:184).
@@ -246,7 +246,7 @@ class IntProbe:
     """CountHash-shaped view of a cuckoo table for the per-read plain
     search: kmer_occ(x) on Python-integer planes, probing a host copy of
     the table with the same arithmetic as cuckoo_probe (a ShardedTable:
-    of every sub-table, as cuckoo_probe_sharded).  n_probes counts the
+    of every sub-table, as cuckoo_addr).  n_probes counts the
     kmer_occ calls."""
 
     def __init__(self, t):

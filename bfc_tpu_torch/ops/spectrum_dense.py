@@ -15,7 +15,8 @@ lax.sort: two stable passes on int64, by keybody and then by shard
 keeps stream order inside a key group, within a batch and for an
 [older run, newer run] concatenation, so each group's first row is its
 first occurrence - the precondition of the combine.  Kernel KB marks the
-group heads, folds each group into its head and compacts the heads.
+group heads, folds each group into its head and compacts the heads, in
+one pass.
 
 Kernel KE packs a run for its pull to the host (spectrum_dense.py:
 pack_pull, :233): arrival, counts and first_high fold into two 32-bit
@@ -79,9 +80,13 @@ def run_combine_plain(srt: Run) -> Run:
                None if srt.ret is None else srt.ret[hidx])
 
 
+_kb = {}  # KB's rows a tile, and the pinned int64 of its group count
+
+
 def run_combine(srt: Run) -> Run:
     """Combine equal keys of a sorted run into their head rows and compact
-    (kernel KB: a head pass and a combine pass around torch.cumsum)."""
+    (kernel KB: one launch; the outputs are allocated for every row and
+    narrowed to the groups, whose count is the call's one host sync)."""
     N = len(srt)
     dev = srt.shard.device
     for name in ("shard", "keybody", "arr", "n", "n_high"):
@@ -91,22 +96,32 @@ def run_combine(srt: Run) -> Run:
         kernels.check(srt.ret, "ret", torch.int64, (N,), dev)
     if dev.type == "cpu":
         return run_combine_plain(srt)
+    if not _kb:
+        import ctypes
+
+        tile = ctypes.c_longlong()
+        kernels.KB.call("kb_tile_rows", ctypes.byref(tile))
+        _kb["tile"] = tile.value
+        _kb["count"] = torch.empty((1,), dtype=torch.int64, pin_memory=True)
+    # one int64 allocation: the output columns, then the tile status words
+    n_cols = 5 if srt.ret is None else 6
+    buf = torch.empty((n_cols * N + -(-N // _kb["tile"]) + 2,),
+                      dtype=torch.int64, device=dev)
+    cols = [buf[i * N:(i + 1) * N] for i in range(n_cols)]
+    out = Run(*cols[:5], torch.empty((N,), dtype=torch.uint8, device=dev),
+              cols[5] if srt.ret is not None else None)
+    if N == 0:
+        return out
+
     def p(t):
         return None if t is None else t.data_ptr()
 
-    head = torch.empty((N,), dtype=torch.int32, device=dev)
-    kernels.KB.launch("kb_head_launch", p(srt.shard), p(srt.keybody), N,
-                      p(head))
-    cum = torch.cumsum(head, 0, dtype=torch.int64)
-    C = int(cum[-1]) if N else 0
-    out = Run(*(torch.empty((C,), dtype=torch.int64, device=dev)
-                for _ in range(5)),
-              torch.empty((C,), dtype=torch.uint8, device=dev),
-              None if srt.ret is None
-              else torch.empty((C,), dtype=torch.int64, device=dev))
-    kernels.KB.launch("kb_combine_launch", N, p(head), p(cum),
-                      *(p(f) for f in srt), *(p(f) for f in out))
-    return out
+    kernels.KB.launch("kb_launch", N, *(p(f) for f in srt),
+                      *(p(f) for f in out), buf[n_cols * N:].data_ptr(),
+                      _kb["count"].data_ptr())
+    torch.cuda.current_stream(dev).synchronize()
+    C = int(_kb["count"][0])
+    return Run(*(None if f is None else f[:C] for f in out))
 
 
 def _gather(r: Run, perm) -> Run:
@@ -152,7 +167,9 @@ def chunk_run(bases, qual_ok, lens, arrival_base: int, k: int, l_pre: int,
 
 def merge_bytes(a: Run, b: Run) -> int:
     """Device bytes a merge holds at its peak: the concatenation, its sort
-    permutations and gathered copy, and the combined output."""
+    permutations and gathered copy, and the combined output, which KB
+    allocates for every row before it narrows it to the groups (its tile
+    status words, 8 bytes a 2,048 rows, are not counted)."""
     rows = len(a) + len(b)
     per_row = 8 * (6 if a.ret is None else 7)
     return rows * (3 * per_row + 4 * 8)

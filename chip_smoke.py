@@ -18,21 +18,29 @@ Phases (any failure raises; nothing is caught):
    count is zeroed just before and read just after; each kernel must have
    launched.  The output must hold one record per input read, and 1,000
    seeded reads re-corrected by the scalar model (refmodel.ec1) on the
-   same spectrum must give byte-identical records.  The run dumps its
-   spectrum (-d) for phase 14, timed apart from both phases.
+   same spectrum must give byte-identical records, and at most 0.1% of
+   the reads may fall back to the scalar model.  The run dumps its
+   spectrum (-d) for phase 14, timed apart from both phases; the report
+   gives the counting's and the correction's device memory peaks.
 3. The counting against plain versions: the main path's counting tree is
    built again from the same reads with KB held against its plain
    version on every merge (up to the final fold of ~50M rows), and must
-   fold to the main path's number of distinct k-mers; KE is held against
+   fold to the main path's number of distinct k-mers; KB is timed on the
+   top merge's input (the median of 7 calls); KE is held against
    its plain version on that fold, and the fold's pull is timed unpacked
    and packed (KE) in turns.  Then the card's count of the first 80,000
    reads (~9 batches) must equal a plain count of them on the CPU,
    aggregate field for field and finalized spectrum.
 4. Each of KA-KD against its plain version on the same CUDA tensors at
    the main path's shapes (KA and KB: a 16,384-read counting batch of 128
-   slots; KC and KD: an 8,192-read correction batch of 100 bp, KD's plain
-   version on its first 512 reads) with the k = 23 spectrum of phase 2,
-   then again at k = 33 on a spectrum of the first 200,000 reads.
+   slots; KC and KD: the main path's correction batch of 100 bp reads,
+   as the reader cuts it, KD's plain version on its first 512 reads, and
+   KD on its first 8,192 reads and on 65,536 reads, the batch's cap, equal
+   to KD on the batch there) with the k = 23 spectrum of phase 2, then
+   again at k = 33 on a spectrum of the first 200,000 reads.  KB and KD
+   are timed as the median of 7 calls, KD at the three sizes (us a read,
+   G sectors/s of the spec's probes), beside KD's registers, local
+   memory, blocks an SM and a batch's peak memory.
 5. The trim path, as `python -m bfc_tpu_torch -1 -k51 reads.fq` runs it
    (the default -b33, where the verdict is KF's): run_device over the same
    3,000,000 reads, launch counts zeroed just before and read just after;
@@ -93,7 +101,7 @@ Phases (any failure raises; nothing is caught):
 13. KN against its plain version: the main fold's kept entries split by
    owner at R = 2, 4 and 8, each rank's sub-table built by both, compared
    by lookups of every kept entry and 1,000,000 seeded other keys with
-   the replicated table (KL); then KC and KD on the 8,192-read correction
+   the replicated table (KL); then KC and KD on the main path's correction
    batch over those R sub-tables, held in one process behind one address
    array, equal to KC and KD on the replicated table and to their plain
    versions (KD's on its first 512 reads).
@@ -109,7 +117,8 @@ Phases (any failure raises; nothing is caught):
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times of KA-KN are CUDA-event means of repeated wrapper calls
-from Python after a warm-up, the host's cost of a call included; KO-KR's
+from Python after a warm-up (KB and KD: the median of 7 calls, each timed
+alone), the host's cost of a call included; KO-KR's
 are the median replay of a CUDA graph of repeated calls (chip_probe.py),
 the host's cost excluded.  Each row of the kernels line says which
 ("timing").
@@ -136,6 +145,7 @@ import numpy as np
 import torch
 
 from bfc_tpu_torch import cli, kernels
+from bfc_tpu_torch.io import fast_reader as FR
 from bfc_tpu_torch.io.fastq import Read, format_corrected, pack_stats
 from bfc_tpu_torch.io.writer import OutputWriter
 from bfc_tpu_torch.models import counter as C
@@ -174,7 +184,8 @@ OPS_KK_ROW = 2 * 10   # the payload rule and two bin increments
 OPS_KM_ROW = 2 * 12   # the destination rule, twice, and a rank
 
 COUNT_B, COUNT_L = 16384, 128   # run_device's counting batch (padded to 32)
-CORR_B = 8192                   # run_device's correction batch
+CORR_B_PR6 = 8192               # the correction batch before KD's redesign
+MEDIAN_REPS = 7                 # timed calls of KB and KD, each on its own
 KD_PLAIN_READS = 512
 SAMPLE_READS = 1000
 HEAD_READS = 80_000             # ~9 counting batches for the plain count
@@ -247,6 +258,23 @@ def write_fastq(path: Path, bases: np.ndarray, quals: np.ndarray,
 # Timing and comparison helpers
 # --------------------------------------------------------------------------
 
+def cuda_median_ms(fn, reps: int = MEDIAN_REPS) -> float:
+    """Median milliseconds of fn() on the card over reps runs, each timed
+    by its own pair of CUDA events, after one."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the card over reps runs, after one."""
     fn()
@@ -273,10 +301,10 @@ def count_batch(bases, quals, opt, dev):
             torch.from_numpy(lens).to(dev))
 
 
-def corr_batch(bases, quals, opt, dev, first: int):
-    """CORR_B reads as Corrector.device_step hands them to KC and KD."""
-    b = bases[first:first + CORR_B]
-    q = (quals[first:first + CORR_B].astype(np.int32) - 33 >= opt.q) & (b <= 3)
+def corr_batch(bases, quals, opt, dev, first: int, n: int):
+    """n reads as Corrector.device_step hands them to KC and KD."""
+    b = bases[first:first + n]
+    q = (quals[first:first + n].astype(np.int32) - 33 >= opt.q) & (b <= 3)
     lens = np.full((len(b),), b.shape[1], np.int32)
     return (torch.from_numpy(np.ascontiguousarray(b)).to(dev),
             torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev))
@@ -286,9 +314,10 @@ def corr_batch(bases, quals, opt, dev, first: int):
 # Kernel checks
 # --------------------------------------------------------------------------
 
-def check_kernels(opt, ds, bases, quals, dev, timed: bool):
-    """Each kernel against its plain version at the main path's shapes.
-    Returns {name: {max_abs_err, and when timed: ms, plain_ms, bound}}."""
+def check_kernels(opt, ds, bases, quals, dev, timed: bool, corr_reads: int):
+    """Each kernel against its plain version at the main path's shapes
+    (corr_reads: the main path's correction batch).  Returns {name:
+    {max_abs_err, and when timed: ms, plain_ms, bound}}."""
     k, l_pre = opt.k, opt.effective_l_pre()
     carry = not sdn.ret_derivable(k, l_pre)
     res = {}
@@ -325,14 +354,19 @@ def check_kernels(opt, ds, bases, quals, dev, timed: bool):
     if timed:
         N, Cn = len(srt), len(kb)
         row = 8 * (6 if carry else 5) + 1
-        r["ms"] = cuda_ms(lambda: sdn.run_combine(srt), 20)
+        r["ms"] = cuda_median_ms(lambda: sdn.run_combine(srt))
         r["plain_ms"] = cuda_ms(lambda: sdn.run_combine_plain(srt), 3)
         r["bound"] = bound((N + Cn) * row, N * OPS_KB_ROW)
+        r["rows"] = N
     res["run_combine"] = r
 
-    # KC and KD: one correction batch of reads after the counting batch
+    # KC and KD: the main path's correction batch of the reads after the
+    # counting batch; KD also on its first 8,192 reads (the batch before
+    # PR 7) and, timed, on CORRECT_BATCH reads (the batch's cap)
     t = ds.table
-    b, q, lens = corr_batch(bases, quals, opt, dev, COUNT_B)
+    cap = max(srch.CORRECT_BATCH, corr_reads)
+    bc, qc, lc = corr_batch(bases, quals, opt, dev, COUNT_B, cap)
+    b, q, lens = (x[:corr_reads] for x in (bc, qc, lc))
     kc = ann.kcov_island(t, b, lens, opt.min_cov)
     kc_p = ann.kcov_island_plain(t, b, lens, opt.min_cov)
     r = dict(zip(("max_abs_err", "mismatches"), compare(kc, kc_p)))
@@ -342,6 +376,9 @@ def check_kernels(opt, ds, bases, quals, dev, timed: bool):
         probes = int((kops.kmer_stream_plain(b, q, lens, k, l_pre)[0]
                       != kops.INVALID_SHARD).sum())
         r["ms"] = cuda_ms(lambda: ann.kcov_island(t, b, lens, opt.min_cov), 20)
+        m = min(CORR_B_PR6, B)
+        r["ms_8192"] = cuda_ms(
+            lambda: ann.kcov_island(t, b[:m], lens[:m], opt.min_cov), 20)
         r["plain_ms"] = cuda_ms(
             lambda: ann.kcov_island_plain(t, b, lens, opt.min_cov), 2)
         r["bound"] = bound(B * L * 7 + B * 16 + probes * 2 * SECTOR,
@@ -360,14 +397,59 @@ def check_kernels(opt, ds, bases, quals, dev, timed: bool):
     r = dict(zip(("max_abs_err", "mismatches"),
                  compare([x[:n] for x in kd], kd_p)))
     r["overflow"] = int(kd[1][:, srch.OVERFLOW].sum())
+    # the PR 6 batch and the cap: the same reads give the same results and
+    # overflow set
+    m = min(CORR_B_PR6, B)
+    small = tuple(x[:m] for x in (b, q, lens, lcov, hcov, isl))
+    kd8 = srch.ec1_search(t, opt, ds.mode, *small)
+    _, n8 = compare(kd8, [x[:m] for x in kd])
+    r["mismatches"] += n8 if n8 >= 0 else m
+    kc_cap = ann.kcov_island(t, bc, lc, opt.min_cov)
+    big = (bc, qc, lc, *kc_cap[1:])
+    kd_cap = srch.ec1_search(t, opt, ds.mode, *big)
+    _, nc = compare([x[:B] for x in kd_cap], kd)
+    r["mismatches"] += nc if nc >= 0 else B
+    r["reads"], r["cap_reads"] = B, cap
     if timed:
         probes = int(kd[1][:, srch.PROBES].sum())
-        r["ms"] = cuda_ms(lambda: srch.ec1_search(
-            t, opt, ds.mode, b, q, lens, lcov, hcov, isl), 3)
+        probes8 = int(kd[1][:m, srch.PROBES].sum())
+        r["ms"] = cuda_median_ms(lambda: srch.ec1_search(
+            t, opt, ds.mode, b, q, lens, lcov, hcov, isl))
+        r["ms_8192"] = cuda_median_ms(lambda: srch.ec1_search(
+            t, opt, ds.mode, *small))
+        r["ms_cap"] = cuda_median_ms(lambda: srch.ec1_search(
+            t, opt, ds.mode, *big))
+        probes_cap = int(kd_cap[1][:, srch.PROBES].sum())
+        r["us_per_read"] = r["ms"] * 1e3 / B
+        r["us_per_read_8192"] = r["ms_8192"] * 1e3 / m
+        r["us_per_read_cap"] = r["ms_cap"] * 1e3 / cap
+        r["sectors_per_s_cap"] = probes_cap * 2 / (r["ms_cap"] * 1e-3)
+        r["spec_probes"] = probes
+        r["sectors_per_s"] = probes * 2 / (r["ms"] * 1e-3)
+        r["sectors_per_s_8192"] = probes8 * 2 / (r["ms_8192"] * 1e-3)
+        plan = srch.kd_plan()
+        r.update(registers=plan.registers, local_bytes=plan.local_bytes,
+                 blocks_per_sm=plan.blocks_per_sm,
+                 resident_threads=plan.blocks * plan.threads)
+        # one batch's KC + KD above what is allocated before it
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kc2 = ann.kcov_island(t, b, lens, opt.min_cov)
+        srch.ec1_search(t, opt, ds.mode, b, q, lens, *kc2[1:])
+        torch.cuda.synchronize()
+        r["batch_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        del kc2
         r["plain_ms"] = plain_s * 1e3
         r["plain_reads"] = n
         r["bound"] = bound(B * L * 5 + B * (16 + 4 * srch.N_OUT)
                            + probes * 2 * SECTOR, probes * OPS_PROBE)
+        r["bound_ms_8192"] = bound(m * L * 5 + m * (16 + 4 * srch.N_OUT)
+                                   + probes8 * 2 * SECTOR,
+                                   probes8 * OPS_PROBE)[0]
+        r["bound_ms_cap"] = bound(cap * L * 5 + cap * (16 + 4 * srch.N_OUT)
+                                  + probes_cap * 2 * SECTOR,
+                                  probes_cap * OPS_PROBE)[0]
     res["ec1_search"] = r
     return res
 
@@ -384,6 +466,7 @@ class CheckedAgg(C.AggBuilder):
         super().__init__(opt, device)
         self.merges = self.max_rows = self.mismatches = 0
         self.max_abs_err = 0.0
+        self.top = None  # the sorted input of the last (top) merge
 
     def _merge(self, a, b):
         srt = sdn.concat_sorted(a, b)
@@ -391,6 +474,7 @@ class CheckedAgg(C.AggBuilder):
         err, n_diff = compare(got, sdn.run_combine_plain(srt))
         self.merges += 1
         self.max_rows = max(self.max_rows, len(srt))
+        self.top = srt
         self.mismatches += n_diff if n_diff >= 0 else len(srt)
         self.max_abs_err = max(self.max_abs_err, err)
         return got
@@ -406,6 +490,15 @@ def check_merges(fq: Path, opt, dev, n_aggregated: int) -> CheckedAgg:
         agg.add(bases, qok, lens)
     agg.folded = agg.fold()
     rows = len(agg.folded)
+    top = agg.top
+    agg.top = None
+    n_top, c_top = len(top), len(agg.folded)
+    row = 8 * (6 if top.ret is not None else 5) + 1
+    agg.top_kb = {"rows": n_top, "ms": cuda_median_ms(
+        lambda: sdn.run_combine(top)), "bound": bound(
+        (n_top + c_top) * row, n_top * OPS_KB_ROW)[0]}
+    del top
+    torch.cuda.empty_cache()
     if agg.mismatches:
         fail(f"KB disagrees with its plain version on {agg.mismatches} merged "
              "rows")
@@ -450,7 +543,9 @@ def drive(opt, fq: Path, out: Path, device_finalize: bool = False, **kw):
         DP.run_device(opt, str(fq), sink=sink, device="cuda", report=report,
                       device_finalize=device_finalize, **kw)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
-    return report, launches, torch.cuda.max_memory_allocated()
+    # run_device resets the peak where the correction starts
+    return report, launches, max(report.get("count_peak_bytes", 0),
+                                 torch.cuda.max_memory_allocated())
 
 
 def file_hash(path: Path) -> str:
@@ -897,7 +992,7 @@ def check_mesh_run(mrep, n: int, backend: str, n_reads: int, launched,
     return label
 
 
-def check_sharded(fold, opt, bases, quals, dev, seed):
+def check_sharded(fold, opt, bases, quals, dev, seed, corr_reads: int):
     """KN against its plain version and the sharded KC and KD against the
     replicated ones (phase 13).  The main fold's kept entries (KJ, KI, KK)
     split by owner at R = 2, 4, 8; KN's and the plain version's sub-tables
@@ -929,7 +1024,7 @@ def check_sharded(fold, opt, bases, quals, dev, seed):
     qk = torch.from_numpy(rng.integers(0, 1 << kb_bits, ABSENT_KEYS)).to(dev)
     want_kept = kp.to(torch.int64)
     want_other = lookup(replicated, qs, qk)
-    b, q, lens = corr_batch(bases, quals, opt, dev, COUNT_B)
+    b, q, lens = corr_batch(bases, quals, opt, dev, COUNT_B, corr_reads)
     B, L = b.shape
     kc_rep = ann.kcov_island(replicated, b, lens, opt.min_cov)
     kd_rep = srch.ec1_search(replicated, opt, mode, b, q, lens, *kc_rep[1:])
@@ -989,12 +1084,12 @@ def check_sharded(fold, opt, bases, quals, dev, seed):
         if R == 2:
             kc["ms"] = cuda_ms(lambda: ann.kcov_island(st, b, lens,
                                                        opt.min_cov), 20)
-            kd["ms"] = cuda_ms(lambda: srch.ec1_search(
-                st, opt, mode, b, q, lens, *got_kc[1:]), 3)
+            kd["ms"] = cuda_median_ms(lambda: srch.ec1_search(
+                st, opt, mode, b, q, lens, *got_kc[1:]))
             kc["ms_replicated"] = cuda_ms(lambda: ann.kcov_island(
                 replicated, b, lens, opt.min_cov), 20)
-            kd["ms_replicated"] = cuda_ms(lambda: srch.ec1_search(
-                replicated, opt, mode, b, q, lens, *kc_rep[1:]), 3)
+            kd["ms_replicated"] = cuda_median_ms(lambda: srch.ec1_search(
+                replicated, opt, mode, b, q, lens, *kc_rep[1:]))
         del built, st, got_kc, got_kd
         torch.cuda.empty_cache()
     kn["keys"] = n
@@ -1087,6 +1182,8 @@ MAIN_DEVICE_KERNELS = ("kmer_stream", "run_combine", "derive_ret",
                        "kcov_island", "ec1_search")
 TIMING_EVENTS = ("events: mean of wrapper calls from Python, host cost "
                  "included")
+TIMING_MEDIAN = (f"events: median of {MEDIAN_REPS} wrapper calls from "
+                 "Python, each timed alone, host cost included")
 TIMING_GRAPH = (f"graph: median of {chip_probe.REPLAYS} replays of "
                 f"{chip_probe.REPS} calls, host cost excluded")
 TRIM_DEVICE_KERNELS = ("kmer_stream", "run_combine", "bloom_adjudicate",
@@ -1175,11 +1272,20 @@ def main() -> int:
               f"{report['n_kept']} kept, c_bits {report['c_bits']}; -d dump "
               f"{dump.stat().st_size} bytes in {report['dump_s']:.2f} s; "
               f"device memory peak "
-              f"{peak / 2**30:.2f} GiB; scalar fallback "
+              f"{peak / 2**30:.2f} GiB (counting "
+              f"{report['count_peak_bytes'] / 2**30:.2f}, correction "
+              f"{report['correct_peak_bytes'] / 2**30:.2f}); scalar fallback "
               f"{report['n_fallback']} reads; launches {launches}",
               flush=True)
         if report["n_reads"] != n_reads:
             fail(f"counted {report['n_reads']} reads of {n_reads}")
+        if report["n_fallback"] > n_reads * 0.001:
+            fail(f"{report['n_fallback']} reads fell back to the scalar model, "
+                 "above 0.1%")
+        correction_peak = report["correct_peak_bytes"]
+        # the main path's correction batch, as the reader cuts it
+        corr_reads = next(iter(FR.iter_batches(
+            str(fq), srch.CORRECT_BATCH, max_bases=opt.chunk_size))).n
         need_launched(launches, MAIN_KERNELS, "the main path")
         ds = report["spectrum"]
         n_corr = check_output(out_fq, n_reads, bases, quals, opt, ds,
@@ -1203,6 +1309,10 @@ def main() -> int:
         w = res["pack_pull"]["pull_s"]
         print(f"pull of the {res['pack_pull']['rows']}-row fold: unpacked "
               f"{w['unpacked']} s, packed by KE {w['packed']} s", flush=True)
+        top_kb = merged.top_kb
+        print(f"KB on the top merge ({top_kb['rows']} rows): "
+              f"{top_kb['ms']:.3f} ms (median of {MEDIAN_REPS}), bound "
+              f"{top_kb['bound']:.4f} ms", flush=True)
         main_fold = merged.folded
         del merged
         torch.cuda.empty_cache()
@@ -1216,11 +1326,34 @@ def main() -> int:
               f"{time.time() - t0:.1f} s", flush=True)
 
         # ---- KA-KD against their plain versions
-        res.update(check_kernels(opt, ds, bases, quals, dev, timed=True))
+        res.update(check_kernels(opt, ds, bases, quals, dev, True,
+                                 corr_reads))
+        res["run_combine"]["top_merge"] = top_kb
+        r = res["run_combine"]
+        print(f"KB on a {r['rows']}-row counting batch: {r['ms']:.4f} ms "
+              f"(median of {MEDIAN_REPS}), bound {r['bound'][0]:.4f} ms",
+              flush=True)
+        r = res["ec1_search"]
+        r["correction_peak_bytes"] = correction_peak
+        print(f"KD: {r['ms']:.3f} ms on the main path's {r['reads']}-read "
+              f"batch ({r['us_per_read']:.4f} us a read), {r['ms_8192']:.3f} "
+              f"ms on {CORR_B_PR6} ({r['us_per_read_8192']:.4f} us a read), "
+              f"{r['ms_cap']:.3f} ms on {r['cap_reads']} "
+              f"({r['us_per_read_cap']:.4f} us a read), medians "
+              f"of {MEDIAN_REPS}; {r['spec_probes']} spec probes, "
+              f"{r['sectors_per_s'] / 1e9:.2f} G sectors/s "
+              f"({r['sectors_per_s_8192'] / 1e9:.2f} at {CORR_B_PR6}); "
+              f"{r['registers']} registers, {r['local_bytes']} local bytes a "
+              f"thread, {r['blocks_per_sm']} blocks an SM "
+              f"({r['resident_threads']} threads); a batch's KC + KD peak "
+              f"{r['batch_peak_bytes'] / 2**30:.3f} GiB, the correction "
+              f"pass's {correction_peak / 2**30:.3f} GiB; {r['overflow']} "
+              f"overflows", flush=True)
         small = tmp / "reads_head.fq"
         write_fastq(small, bases[:200_000], quals[:200_000])
         opt33, ds33 = small_spectrum(small, 33, dev)
-        res33 = check_kernels(opt33, ds33, bases, quals, dev, timed=False)
+        res33 = check_kernels(opt33, ds33, bases, quals, dev, False,
+                              corr_reads)
         del ds33, report
         torch.cuda.empty_cache()
 
@@ -1394,7 +1527,7 @@ def main() -> int:
         # on the card)
         t0 = time.time()
         kn, kc_sh, kd_sh = check_sharded(main_fold, opt, bases, quals, dev,
-                                         args.seed)
+                                         args.seed, corr_reads)
         res["cuckoo_build_local"] = kn
         res["kcov_island"]["sharded"] = kc_sh
         res["ec1_search"]["sharded"] = kd_sh
@@ -1544,8 +1677,17 @@ def main() -> int:
                "mismatches": mism,
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-               "library_ms": None, "timing": TIMING_EVENTS}
-        for extra in ("plain_reads", "rows", "pull_s", "replay_mismatches",
+               "library_ms": None,
+               "timing": (TIMING_MEDIAN if name in ("run_combine",
+                                                    "ec1_search")
+                          else TIMING_EVENTS)}
+        for extra in ("reads", "ms_8192", "us_per_read", "us_per_read_8192",
+                      "bound_ms_8192", "cap_reads", "ms_cap",
+                      "us_per_read_cap", "sectors_per_s_cap", "bound_ms_cap",
+                      "spec_probes", "sectors_per_s", "sectors_per_s_8192", "registers", "local_bytes",
+                      "blocks_per_sm", "resident_threads", "batch_peak_bytes",
+                      "correction_peak_bytes", "overflow", "top_merge",
+                      "plain_reads", "rows", "pull_s", "replay_mismatches",
                       "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
                       "rows_sent", "ms_fold", "plain_ms_fold",
                       "bound_ms_fold", "rows_fold", "cb_local", "keys",

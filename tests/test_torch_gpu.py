@@ -1,5 +1,5 @@
 """The eighteen CUDA kernels against their plain PyTorch versions on a
-card, the trim path and the device finalize on the card against the same
+card (KB at its tile edges, KD with reads deferred to its second pass), the trim path and the device finalize on the card against the same
 paths on the CPU (also at -b35, where the verdict is KI's), and the mesh
 path (one NCCL rank, two gloo ranks sharing the card), with the table
 replicated and sharded, against the single-device run.
@@ -93,6 +93,63 @@ def test_ka_kb_match_plain(card, spectrum):
                   torch.ones_like(arrp), arrp & 1,
                   (arrp & 1).to(torch.uint8), got[3].view(-1)[perm])
     _eq(sdn.run_combine(srt), sdn.run_combine_plain(srt))
+
+
+@pytest.mark.parametrize("N,invalid", [(1, 0), (1, 1), (2049, 0),
+                                       (2049, 2049), (70000, 3000)])
+def test_kb_tile_edges_match_plain(card, N, invalid):
+    """One row, one row past a 2,048-row tile, all rows invalid, and many
+    tiles with groups of 1-6 rows straddling their edges."""
+    rng = np.random.default_rng(N + invalid)
+    valid = N - invalid
+    shard = np.sort(rng.integers(0, max(valid // 3, 1), valid))
+    shard = np.concatenate([shard, np.full(invalid, 0xFFFFFFFF)])
+    keybody = shard * 7 + 3
+    cols = [torch.from_numpy(c.astype(np.int64)).to(card) for c in
+            (shard, keybody, rng.integers(0, 1 << 40, N),
+             rng.integers(1, 5, N), rng.integers(0, 3, N))]
+    fh = torch.from_numpy(rng.integers(0, 2, N).astype(np.uint8)).to(card)
+    for ret in (None, torch.from_numpy(rng.integers(0, 1 << 62, N)).to(card)):
+        srt = sdn.Run(*cols, fh, ret)
+        got = sdn.run_combine(srt)
+        want = sdn.run_combine_plain(srt)
+        assert len(got) == len(want)
+        _eq(got, want)
+
+
+def test_kd_long_reads_defer_to_pass_two(card, spectrum):
+    """Reads of 700 bases push past pass 1's 512-entry stack, so pass 2
+    corrects them; tiny caps make some overflow the full caps."""
+    opt, ds, _, _ = spectrum
+    n = 96
+    long_b, long_q = _reads(n=n, rlen=700, seed=3)  # the spectrum's genome
+    bases = torch.from_numpy(long_b).to(card)
+    qf = torch.from_numpy(long_q >= 33 + opt.q).to(card)
+    lens = torch.from_numpy(np.random.default_rng(5).integers(
+        600, 701, n).astype(np.int32)).to(card)
+    t = ds.table
+    _, lcov, hcov, isl = ann.kcov_island(t, bases, lens, opt.min_cov)
+    for caps in ((srch.HEAP_CAP, srch.STACK_CAP), (24, 600)):
+        got = srch.ec1_search(t, opt, ds.mode, bases, qf, lens, lcov, hcov,
+                              isl, *caps)
+        _eq(got, srch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens,
+                                       lcov, hcov, isl, *caps))
+
+
+def test_correct_file_device_default_batch(card, spectrum, tmp_path):
+    """70,000 reads in default batches (as the reader cuts them) give the
+    bytes of 8,192-read batches."""
+    opt, ds, b, q = spectrum
+    idx = np.random.default_rng(7).integers(0, len(b), 70000)
+    fq = _write_fq(tmp_path / "many.fq", b[idx], q[idx])
+    from bfc_tpu_torch.io.writer import OutputWriter
+
+    outs = []
+    for batch in (srch.CORRECT_BATCH, 8192):
+        w = OutputWriter()
+        TDP.correct_file_device(str(fq), opt, ds, w, batch_reads=batch)
+        outs.append(w.getbytes())
+    assert outs[0] == outs[1]
 
 
 def test_kc_kd_match_plain(card, spectrum):

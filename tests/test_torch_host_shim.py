@@ -50,10 +50,10 @@ def shim(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     I, LL = ctypes.c_int, ctypes.c_longlong
     lib.ka_host.argtypes = [P, P, P, I, I, I, I, LL, P, P, P, P]
-    lib.kb_head_host.argtypes = [P, P, LL, P]
-    lib.kb_combine_host.argtypes = [LL] + [P] * 16
+    lib.kb_host.argtypes = [LL, LL, I] + [P] * 14
+    lib.kb_host.restype = LL
     lib.kc_host.argtypes = [P, P, I, I, I, I, I, I, P, P, I, I, P, P, P, P]
-    lib.kd_host.argtypes = [P, P, I, I, I, I, I, P, I, I] + [P] * 8
+    lib.kd_host.argtypes = [P, P, I, I, I, I, I, P, I, I] + [P] * 8 + [I, P]
     lib.ke_host.argtypes = [LL] + [P] * 6
     lib.kf_host.argtypes = [LL, P, P, P, I, I, P, P, P]
     lib.kg_host.argtypes = [LL, P, P, I, I, P]
@@ -80,8 +80,7 @@ def shim(tmp_path_factory):
               lib.kp_lane_host, lib.kq_registers_host, lib.kq_shared_host,
               lib.kr_host):
         f.restype = None
-    for f in (lib.ka_host, lib.kb_head_host, lib.kb_combine_host,
-              lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
+    for f in (lib.ka_host, lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
               lib.kj_host, lib.kk_host, lib.km_count_host,
               lib.km_scatter_host, lib.subtable_slots_host):
@@ -122,34 +121,94 @@ def test_ka_body_matches_plain(shim, k):
         torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
 
 
-@pytest.mark.parametrize("k", [23, 63])
-def test_kb_body_matches_plain(shim, k):
+def _kb_host(shim, srt, tile, lazy=0):
+    """KB's tile bodies in order over a sorted run: (Run, groups)."""
+    N = len(srt)
+    got = tsdn.Run(*(torch.full((N,), -7, dtype=torch.int64)
+                     for _ in range(5)),
+                   torch.full((N,), 9, dtype=torch.uint8),
+                   None if srt.ret is None
+                   else torch.full((N,), -7, dtype=torch.int64))
+    C = shim.kb_host(N, tile, lazy, *(_p(f) for f in srt),
+                     *(_p(f) for f in got))
+    return tsdn.Run(*(None if f is None else f[:C] for f in got)), C
+
+
+def _assert_runs_equal(got, want):
+    assert len(got) == len(want)
+    for name, w, g in zip(tsdn.Run._fields, want, got):
+        assert (w is None) == (g is None), name
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+def _merge_input(k):
+    """The sorted [older, newer] input of a merge: a batch's run and the
+    same reads again later in the stream, so every key repeats."""
     o = Opts()
     o.k = k
     l_pre = o.effective_l_pre()
     carry = not tsdn.ret_derivable(k, l_pre)
     bases, qok, lens = _batch(5)
     a = tsdn.chunk_run(bases, qok, lens, 0, k, l_pre, carry)
-    # the same reads again, later in the stream: every key repeats
     b = tsdn.chunk_run(bases, ~qok, lens, bases.numel(), k, l_pre, carry)
     cat = tsdn.Run(*(None if x is None else torch.cat([x, y])
                      for x, y in zip(a, b)))
-    srt = tsdn._gather(cat, tsdn.stable_order(cat.shard, cat.keybody))
+    return tsdn._gather(cat, tsdn.stable_order(cat.shard, cat.keybody))
+
+
+@pytest.mark.parametrize("k", [23, 63])
+def test_kb_body_matches_plain(shim, k):
+    srt = _merge_input(k)
     want = tsdn.run_combine_plain(srt)
-    N = len(srt)
-    head = torch.empty((N,), dtype=torch.int32)
-    shim.kb_head_host(_p(srt.shard), _p(srt.keybody), N, _p(head))
-    cum = torch.cumsum(head, 0, dtype=torch.int64)
-    C = int(cum[-1])
-    assert C == len(want) < N
-    got = tsdn.Run(*(torch.empty((C,), dtype=torch.int64) for _ in range(5)),
-                   torch.empty((C,), dtype=torch.uint8),
-                   torch.empty((C,), dtype=torch.int64) if carry else None)
-    shim.kb_combine_host(N, _p(head), _p(cum), *(_p(f) for f in srt),
-                         *(_p(f) for f in got))
-    for name, w, g in zip(tsdn.Run._fields, want, got):
-        if w is not None:
-            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    got, C = _kb_host(shim, srt, 2048)
+    assert C == len(want) < len(srt)
+    _assert_runs_equal(got, want)
+
+
+def _sorted_rows(rng, N, n_keys, invalid_tail, with_ret):
+    """A sorted run of N rows over n_keys keys with random group lengths
+    (keys repeat 1-6 times) and invalid_tail INVALID_SHARD rows last."""
+    valid = N - invalid_tail
+    shard = np.sort(rng.integers(0, n_keys, valid)).astype(np.int64)
+    keybody = shard * 7 + 3
+    shard = np.concatenate([shard, np.full(invalid_tail, 0xFFFFFFFF)])
+    keybody = np.concatenate([keybody, rng.integers(0, 100, invalid_tail)])
+    cols = [torch.from_numpy(c.astype(np.int64)) for c in
+            (shard, keybody, rng.integers(0, 1 << 40, N),
+             rng.integers(1, 5, N), rng.integers(0, 3, N))]
+    fh = torch.from_numpy(rng.integers(0, 2, N).astype(np.uint8))
+    ret = (torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, N))
+           if with_ret else None)
+    return tsdn.Run(*cols, fh, ret)
+
+
+@pytest.mark.parametrize("with_ret", [False, True], ids=["no-ret", "ret"])
+@pytest.mark.parametrize("lazy", [0, 1], ids=["prefix", "walk-back"])
+@pytest.mark.parametrize("tile", [1, 2, 3, 7, 64])
+def test_kb_tiles_across_groups_match_plain(shim, tile, lazy, with_ret):
+    """Tiles shorter than most groups, so groups straddle one or more tile
+    edges; an all-invalid tail; every look-back walking to tile 0."""
+    rng = np.random.default_rng(tile * 10 + lazy)
+    srt = _sorted_rows(rng, 400, 120, 37, with_ret)
+    want = tsdn.run_combine_plain(srt)
+    got, C = _kb_host(shim, srt, tile, lazy)
+    assert 0 < C < 363
+    _assert_runs_equal(got, want)
+
+
+@pytest.mark.parametrize("with_ret", [False, True], ids=["no-ret", "ret"])
+@pytest.mark.parametrize("N,invalid", [(0, 0), (1, 0), (1, 1), (65, 0),
+                                       (65, 65), (65, 1)])
+def test_kb_tile_edges_match_plain(shim, N, invalid, with_ret):
+    """N = 0, 1 and one row past a 64-row tile; all rows invalid; one
+    invalid row alone in the last tile."""
+    rng = np.random.default_rng(N + invalid)
+    srt = _sorted_rows(rng, N, 20, invalid, with_ret)
+    want = tsdn.run_combine_plain(srt)
+    for lazy in (0, 1):
+        got, C = _kb_host(shim, srt, 64, lazy)
+        _assert_runs_equal(got, want)
 
 
 @pytest.fixture(scope="module", params=[21, 33])
@@ -199,16 +258,24 @@ def _kc_host(shim, t, bases, lens, min_cov):
     return occ, lcov, hcov, isl
 
 
+KD_STACK1 = 512  # csrc/ec1_search.cuh: pass 1's stack a thread on the card
+
+
 def _kd_host(shim, t, opt, mode, bases, qf, lens, lcov, hcov, isl,
-             heap_cap, stack_cap):
+             heap_cap, stack_cap, stack1=KD_STACK1):
+    """KD's two passes over the batch, each by one serial worker: (packed,
+    out); the reads pass 1 deferred are in _kd_host.deferred."""
     B, L = bases.shape
     packed = torch.empty((B, L), dtype=torch.uint8)
-    out = torch.empty((B, tsrch.N_OUT), dtype=torch.int32)
+    out = torch.full((B, tsrch.N_OUT), -9, dtype=torch.int32)
+    deferred = ctypes.c_int32()
     ip = tsrch._iparams(opt, mode, heap_cap, stack_cap)
     table, subs, db, _keep = _table_args(t)
     shim.kd_host(table, subs, db, t.k, t.l_pre, t.kb_bits, t.c_bits,
                  ip.ctypes.data, B, L, _p(bases), _p(qf), _p(lens), _p(lcov),
-                 _p(hcov), _p(isl), _p(packed), _p(out))
+                 _p(hcov), _p(isl), _p(packed), _p(out), stack1,
+                 ctypes.byref(deferred))
+    _kd_host.deferred = deferred.value
     return packed, out
 
 
@@ -243,6 +310,72 @@ def test_kd_body_matches_plain(shim, spectrum, caps):
         assert n_ovf == 0 and int((want_out[:, tsrch.N_EC] > 0).sum()) > 10
     else:
         assert 0 < n_ovf < B
+
+
+@pytest.mark.parametrize("caps", [(tsrch.HEAP_CAP, tsrch.STACK_CAP), (24, 120)],
+                         ids=["main-caps", "tiny-caps"])
+def test_kd_deferred_reads_match_plain(shim, spectrum, caps):
+    """Pass 1 with a 40-entry stack defers most reads (a 100 bp read
+    pushes ~100 a direction); pass 2 runs them again with the full stack.
+    The result, the overflow set and KD_PROBES read by read are the plain
+    version's, as with no deferral."""
+    opt, ds, bases, qf, lens = spectrum
+    t = ds.table
+    _, lcov, hcov, isl = tann.kcov_island_plain(t, bases, lens, opt.min_cov)
+    want = tsrch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens, lcov,
+                                  hcov, isl, *caps)
+    one_pass = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov, hcov,
+                        isl, *caps, stack1=caps[1])
+    assert _kd_host.deferred == 0
+    got = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl,
+                   *caps, stack1=40)
+    assert 20 < _kd_host.deferred <= bases.shape[0]
+    for g in (one_pass, got):
+        torch.testing.assert_close(g[1], want[1], rtol=0, atol=0)
+        torch.testing.assert_close(g[0], want[0], rtol=0, atol=0)
+    probes = got[1][:, tsrch.PROBES]
+    assert torch.equal(probes, want[1][:, tsrch.PROBES])
+    searched = want[1][:, tsrch.OVERFLOW] == 0
+    assert int((probes[searched] > 0).sum()) > 100
+
+
+@pytest.fixture(scope="module")
+def spectrum63(tmp_path_factory):
+    """The spectrum fixture's reads at k = 63 (four u64 planes a state)."""
+    d = tmp_path_factory.mktemp("shim63")
+    genome = datagen.make_genome(12000, seed=61)
+    reads = datagen.simulate_reads(genome, 1500, read_len=100,
+                                   err_rate=0.01, seed=62)
+    fq = f"{d}/reads.fq"
+    datagen.write_fastq(fq, reads)
+    opt = Opts()
+    opt.k = 63
+    opt.bf_shift = 24
+    ds = TC.count_file_device(fq, opt, "cpu", batch_reads=512)
+    sub = reads[:160]
+    bases, _, lens = tk.encode_batch([s for s, _ in sub], None, opt.q)
+    qf = np.zeros(bases.shape, bool)
+    for i, (_, q) in enumerate(sub):
+        qf[i, :len(q)] = np.frombuffer(q.encode(), np.uint8) - 33 >= opt.q
+    qf &= bases <= 3
+    return opt, ds, torch.from_numpy(bases), torch.from_numpy(qf), \
+        torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("stack1", [KD_STACK1, 40])
+def test_kd_body_matches_plain_k63(shim, spectrum63, stack1):
+    opt, ds, bases, qf, lens = spectrum63
+    t = ds.table
+    _, lcov, hcov, isl = tann.kcov_island_plain(t, bases, lens, opt.min_cov)
+    caps = (tsrch.HEAP_CAP, tsrch.STACK_CAP)
+    want = tsrch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens, lcov,
+                                  hcov, isl, *caps)
+    got = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl,
+                   *caps, stack1=stack1)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    assert int((want[1][:, tsrch.PROBES] > 0).sum()) > 50
+    assert int((want[1][:, tsrch.N_EC] > 0).sum()) > 0
 
 
 @pytest.mark.parametrize("bf_shift", [20, 33, 37])
@@ -522,11 +655,14 @@ def test_kn_kc_kd_bodies_over_subtables(shim, spectrum, db):
     caps = (tsrch.HEAP_CAP, tsrch.STACK_CAP)
     got = _kd_host(shim, sharded, opt, ds.mode, bases, qf, lens, lcov, hcov,
                    isl, *caps)
+    deferred = _kd_host(shim, sharded, opt, ds.mode, bases, qf, lens, lcov,
+                        hcov, isl, *caps, stack1=40)
+    assert _kd_host.deferred > 20
     for want in (tsrch.ec1_search_plain(ds.table, opt, ds.mode, bases, qf,
                                         lens, lcov, hcov, isl, *caps),
                  tsrch.ec1_search_plain(plain, opt, ds.mode, bases, qf,
                                         lens, lcov, hcov, isl, *caps)):
-        for g, w in zip(got, want):
+        for g, w in zip(got + deferred, want + want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert int((got[1][:, tsrch.N_EC] > 0).sum()) > 10
 

@@ -1,7 +1,7 @@
 """The port imports torch, numpy and the standard library only.
 
-Parses every module of bfc_tpu_torch/, chip_smoke.py and chip_probe.py
-and fails on an import of jax or of the JAX package bfc_tpu (module names
+Parses every module of bfc_tpu_torch/, chip_smoke.py, chip_probe.py and
+chip_ab.py and fails on an import of jax or of the JAX package bfc_tpu (module names
 matched exactly: bfc_tpu_torch shares the prefix)."""
 
 import ast
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "bfc_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_probe.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "bfc_tpu")
 
 

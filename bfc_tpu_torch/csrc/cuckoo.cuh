@@ -5,9 +5,9 @@
 // entries, entry = qlow << 15 | nest << 14 | payload(14); payload 0 is an
 // empty slot.  Slot 1 is the top c_bits of the 64-bit position key, slot 2
 // is slot 1 ^ alt(qlow); (slot, nest, qlow) reconstructs the identity, so
-// a match is exact.  On the card a probe is two independent random 8-byte
-// loads: each costs one 32-byte sector, and the probe is bound by their
-// latency, which the many reads in flight hide.
+// a match is exact.  On the card a probe is one or two random 8-byte
+// loads (KD issues both at once; KC the second only where the first
+// misses): each costs one 32-byte sector.
 //
 // The prefix-sharded table (bfc_tpu's ShardedCuckoo, spectrum.py:316-343)
 // is 1 << db sub-tables of 1 << cb_local entries, one a rank: the owner of
@@ -187,10 +187,4 @@ BFC_HD ProbeAddr kmer_addr(const SpecParams& sp, const uint64_t x[4]) {
     int64_t shard, keybody;
     shard_keybody(h0, h1, sp.k, sp.l_pre, &shard, &keybody);
     return cuckoo_addr(sp, shard, keybody);
-}
-
-// Payload of the k-mer held in the 4-plane state x (CountHash.kmer_occ).
-BFC_HD int kmer_occ(const SpecParams& sp, const uint64_t x[4]) {
-    ProbeAddr a = kmer_addr(sp, x);
-    return cuckoo_pick(table_load(a.p1), table_load(a.p2), a.qlow);
 }

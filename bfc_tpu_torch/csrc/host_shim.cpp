@@ -2,10 +2,12 @@
 //
 // Compiled with `g++ -x c++ -D__host__= -D__device__= -O2 -shared -fPIC`
 // and loaded with ctypes (tests/test_torch_host_shim.py): each function
-// loops over the reads or rows that one CUDA thread would take, with the
-// same arguments as the matching *_launch function minus the stream, so
-// the tests can hold the CUDA logic against the plain PyTorch versions
-// on a machine without a card.
+// loops over the reads or rows that one CUDA thread would take (for KA
+// and KC, whose warps share a read, over the chunks and lanes of a warp,
+// with the ballots built lane by lane), with the same arguments as the
+// matching *_launch function minus the stream, so the tests can hold the
+// CUDA logic against the plain PyTorch versions on a machine without a
+// card.
 #include "bloom.cuh"
 #include "cuckoo.cuh"
 #include "ec1_search.cuh"
@@ -18,14 +20,32 @@
 
 extern "C" {
 
+// KA's warp a read: each chunk's four ballot words built lane by lane,
+// then each lane's slot cut from the window.
 void ka_host(const uint8_t* bases, const uint8_t* qok, const int32_t* lens,
              int B, int L, int k, int l_pre, long long arrival_base,
              int64_t* shard, int64_t* keybody, int64_t* arrp, int64_t* ret) {
     for (int r = 0; r < B; r++) {
         size_t o = (size_t)r * L;
-        ka_read(bases + o, qok + o, lens[r], L, k, l_pre,
-                (int64_t)arrival_base + (int64_t)o, shard + o, keybody + o,
-                arrp + o, ret ? ret + o : nullptr);
+        SlotWin w;
+        win_clear(w);
+        for (int c0 = 0; c0 < L; c0 += 32) {
+            for (int lane = 0; lane < 32; lane++) {
+                unsigned c, q;
+                slot_load(bases + o, qok + o, lens[r], L, c0 + lane, &c, &q);
+                unsigned v = slot_votes(c, q);
+                for (int i = 0; i < 4; i++)
+                    w.cur[i] = (w.cur[i] & ~(1u << lane)) |
+                               (((v >> i) & 1u) << lane);
+            }
+            for (int lane = 0; lane < 32 && c0 + lane < L; lane++) {
+                size_t s = o + c0 + lane;
+                ka_slot(w, lane, k, l_pre, (int64_t)arrival_base + (int64_t)s,
+                        shard + s, keybody + s, arrp + s,
+                        ret ? ret + s : nullptr);
+            }
+            win_next(w);
+        }
     }
 }
 
@@ -49,17 +69,54 @@ long long kb_host(long long N, long long tile, int lazy, const int64_t* shard,
     return count;
 }
 
-// table or subtables (a host array of 1 << db host addresses), as
-// kc_launch and kd_launch take them.
+// KC's warp a read, as kc_launch takes it (table or subtables, a host
+// array of 1 << db host addresses): each chunk's ballot words built lane
+// by lane, the lanes' probes, their solid and high words, and each
+// chunk's lcov and hcov two chunks later.
 void kc_host(const uint64_t* table, const uint64_t* const* subtables, int db,
              int k, int l_pre, int kb_bits, int c_bits, int min_cov,
              const uint8_t* bases, const int32_t* lens, int B, int L,
              int32_t* occ, uint8_t* lcov, uint8_t* hcov, int32_t* isl) {
     SpecParams sp = {table, k, l_pre, kb_bits, c_bits, subtables, db};
+    int n_chunks = (L + 31) / 32;
     for (int r = 0; r < B; r++) {
         size_t o = (size_t)r * L;
-        kc_read(sp, min_cov, bases + o, lens[r], L, occ + o, lcov + o,
-                hcov + o, isl + 3 * (size_t)r);
+        SlotWin w;
+        win_clear(w);
+        KcIsland I = {0, 0, -1};
+        uint32_t s0 = 0, s1 = 0, h0 = 0, h1 = 0;
+        for (int c = 0; c < n_chunks + 2; c++) {
+            uint32_t sc = 0, hc = 0;
+            if (c < n_chunks) {
+                for (int lane = 0; lane < 32; lane++) {
+                    unsigned b, q;
+                    slot_load(bases + o, nullptr, lens[r], L, 32 * c + lane,
+                              &b, &q);
+                    unsigned v = slot_votes(b, q);
+                    for (int i = 0; i < 3; i++)
+                        w.cur[i] = (w.cur[i] & ~(1u << lane)) |
+                                   (((v >> i) & 1u) << lane);
+                }
+                for (int lane = 0; lane < 32; lane++) {
+                    int s = 32 * c + lane;
+                    if (s >= L) break;
+                    int e = kc_occ(sp, w, lane);
+                    occ[o + s] = e;
+                    sc |= (uint32_t)kc_solid(e, min_cov) << lane;
+                    hc |= (uint32_t)kc_high(e, min_cov) << lane;
+                }
+                kc_island_step(I, sc, 32 * c);
+                win_next(w);
+            }
+            for (int lane = 0; c >= 2 && lane < 32; lane++) {
+                int s2 = 32 * (c - 2) + lane;
+                if (s2 >= L) break;
+                lcov[o + s2] = (uint8_t)kc_window(s0, s1, sc, lane, k);
+                hcov[o + s2] = (uint8_t)kc_window(h0, h1, hc, lane, k);
+            }
+            s0 = s1, s1 = sc, h0 = h1, h1 = hc;
+        }
+        kc_island_end(I, lens[r], k, isl + 3 * (size_t)r);
     }
 }
 

@@ -1,5 +1,5 @@
-"""A/B measurement of KD (ec1_search) and KB (run_combine) of one tree of
-bfc_tpu_torch on one CUDA card.
+"""A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island)
+and KD (ec1_search) of one tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
@@ -12,7 +12,12 @@ turns in one call: A, B, B, A.  The reads are chip_smoke.py's (3,000,000
 reads of 100 bp from a seeded 5 Mb genome), counted with the device
 finalize at `-s 5m` (k = 23).
 
-Prints one JSON line: the card and its power limit; KD on the first 8,192,
+Prints one JSON line: the card and its power limit; KA on the
+16,384-read counting batch of 128 slots and KC on the main path's
+correction batch (as the reader cuts it: 19,508 reads), each as the mean
+of 20 wrapper calls (host cost included) and as a kernel (the median
+replay of a CUDA graph of 50 calls, host cost excluded), with the sha256
+of its outputs; KD on the first 8,192,
 65,536 and 131,072 reads of a correction batch (the median of 7 calls, each
 timed alone with CUDA events, the wrapper's host cost included; us a
 read, the spec's probes, G sectors/s, overflows, and the sha256 of its
@@ -41,6 +46,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 KD_READS = (8192, 65536, 131072)
 TAIL_READS = 64
+CALL_REPS = 20   # KA's and KC's wrapper calls a mean (chip_smoke.py's)
+GRAPH_REPS = 50  # calls in a timed CUDA graph (chip_probe.py's REPS)
 
 
 def _load_smoke():
@@ -77,6 +84,7 @@ def main() -> int:
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
     from bfc_tpu_torch import cli, kernels
+    from bfc_tpu_torch.io import fast_reader as FR
     from bfc_tpu_torch.io.writer import OutputWriter
     from bfc_tpu_torch.models import counter as C
     from bfc_tpu_torch.models import device_pipeline as DP
@@ -107,8 +115,13 @@ def main() -> int:
         k, l_pre = opt.k, opt.effective_l_pre()
         carry = not sdn.ret_derivable(k, l_pre)
         cb, cq, cl = smoke.count_batch(bases, quals, opt, dev)
-        shard, keybody, arrp, ret = kops.kmer_stream(cb, cq, cl, k, l_pre, 0,
-                                                     with_ret=carry)
+        ka = lambda: kops.kmer_stream(cb, cq, cl, k, l_pre, 0, with_ret=carry)
+        shard, keybody, arrp, ret = ka()
+        rec["ka"] = {"reads": smoke.COUNT_B, "slots": smoke.COUNT_L,
+                     "sha256": _sha(*(f for f in (shard, keybody, arrp, ret)
+                                      if f is not None)),
+                     "ms": smoke.cuda_ms(ka, CALL_REPS),
+                     "kernel_ms": smoke.graph_ms([ka], GRAPH_REPS)}
         shard, keybody, arrp = (x.view(-1) for x in (shard, keybody, arrp))
         perm = sdn.stable_order(shard, keybody)
         arrp = arrp[perm]
@@ -123,10 +136,18 @@ def main() -> int:
                                                 11)}
         del got, srt, cb, cq, cl, shard, keybody, arrp, ret, perm, high
 
-        # KD on a correction batch of the reads after the counting batch
+        # KC on the main path's correction batch (as the reader cuts it)
+        # of the reads after the counting batch; KD on correction batches
+        # of those reads
         t = ds.table
         b, q, lens = smoke.corr_batch(bases, quals, opt, dev, smoke.COUNT_B,
                                       max(KD_READS))
+        m = next(iter(FR.iter_batches(str(fq), srch.CORRECT_BATCH,
+                                      max_bases=opt.chunk_size))).n
+        kc = lambda: ann.kcov_island(t, b[:m], lens[:m], opt.min_cov)
+        rec["kc"] = {"reads": m, "sha256": _sha(*kc()),
+                     "ms": smoke.cuda_ms(kc, CALL_REPS),
+                     "kernel_ms": smoke.graph_ms([kc], GRAPH_REPS)}
         _, lcov, hcov, isl = ann.kcov_island(t, b, lens, opt.min_cov)
         rec["kd"] = {}
         if hasattr(srch, "kd_plan"):  # the persistent KD's launch plan

@@ -37,10 +37,14 @@ Phases (any failure raises; nothing is caught):
    as the reader cuts it, KD's plain version on its first 512 reads, and
    KD on its first 8,192 reads and on 65,536 reads, the batch's cap, equal
    to KD on the batch there) with the k = 23 spectrum of phase 2, then
-   again at k = 33 on a spectrum of the first 200,000 reads.  KB and KD
-   are timed as the median of 7 calls, KD at the three sizes (us a read,
-   G sectors/s of the spec's probes), beside KD's registers, local
-   memory, blocks an SM and a batch's peak memory.
+   again at k = 33 on a spectrum of the first 200,000 reads.  KA and KC
+   also on 4,096 rows of 600 slots (six reads end to end, lengths ending
+   mid-chunk).  KB and KD are timed as the median of 7
+   calls, KD at the three sizes (us a read, G sectors/s of the spec's
+   probes), beside KD's registers, local memory, blocks an SM and a
+   batch's peak memory; KA and KC as calls and as kernels (CUDA graphs),
+   KC with its sectors a second and, at the end, against the
+   random-sector rate that phase 15 measures (KC's ceiling).
 5. The trim path, as `python -m bfc_tpu_torch -1 -k51 reads.fq` runs it
    (the default -b33, where the verdict is KF's): run_device over the same
    3,000,000 reads, launch counts zeroed just before and read just after;
@@ -116,12 +120,12 @@ Phases (any failure raises; nothing is caught):
    and the matching PyTorch library call.
 
 The tolerance is exact equality throughout: every output is an integer.
-Kernel times of KA-KN are CUDA-event means of repeated wrapper calls
-from Python after a warm-up (KB and KD: the median of 7 calls, each timed
-alone), the host's cost of a call included; KO-KR's
-are the median replay of a CUDA graph of repeated calls (chip_probe.py),
-the host's cost excluded.  Each row of the kernels line says which
-("timing").
+Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
+calls from Python after a warm-up (KB and KD: the median of 7 calls, each
+timed alone), the host's cost of a call included; KO-KR's, and KA's and
+KC's "kernel_ms", are the median replay of a CUDA graph of repeated calls
+(chip_probe.py), the host's cost excluded.  Each row of the kernels line
+says which ("timing", "kernel_timing").
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
@@ -164,7 +168,7 @@ from bfc_tpu_torch.opts import Opts
 from bfc_tpu_torch.parallel import multihost
 
 import chip_probe
-from chip_probe import SECTOR, bound, card_line, compare
+from chip_probe import SECTOR, bound, card_line, compare, graph_ms
 
 # A u64 add, shift or logic op counts as two 32-bit integer ops (the peak
 # rates and bound are chip_probe.py's).
@@ -184,6 +188,10 @@ OPS_KK_ROW = 2 * 10   # the payload rule and two bin increments
 OPS_KM_ROW = 2 * 12   # the destination rule, twice, and a rank
 
 COUNT_B, COUNT_L = 16384, 128   # run_device's counting batch (padded to 32)
+LONG_B, LONG_L = 4096, 600      # KA and KC on rows of 600 slots
+# the probe path's saturated random-sector sites (4,194,304 queries over
+# 256 MiB), whose rate is KC's ceiling
+SATURATED_SITES = ("hbm_KO_q4194304", "hbm_KR_q4194304")
 CORR_B_PR6 = 8192               # the correction batch before KD's redesign
 MEDIAN_REPS = 7                 # timed calls of KB and KD, each on its own
 KD_PLAIN_READS = 512
@@ -310,6 +318,44 @@ def corr_batch(bases, quals, opt, dev, first: int, n: int):
             torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev))
 
 
+def long_batch(bases, quals, opt, dev):
+    """LONG_B rows of LONG_L slots: six reads after the counting batch end
+    to end, lengths from LONG_L - 50 to LONG_L (most ending mid-chunk),
+    as KA and KC would take reads of up to LONG_L bases."""
+    rng = np.random.default_rng(LONG_L)
+    n = LONG_L // bases.shape[1]
+    first = COUNT_B
+    b = bases[first:first + LONG_B * n].reshape(LONG_B, -1)
+    q = quals[first:first + LONG_B * n].reshape(LONG_B, -1)
+    q = (q.astype(np.int32) - 33 >= opt.q) & (b <= 3)
+    lens = rng.integers(LONG_L - 50, LONG_L + 1, LONG_B).astype(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(b)).to(dev),
+            torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev))
+
+
+def kc_sectors(t, b, q, lens, k: int, l_pre: int):
+    """(probes, sectors) of KC on these reads: one probe at every slot
+    where a full ACGT k-mer ends, of one sector, and one more where the
+    first nest misses (KC loads the second only then)."""
+    shard, keybody, _, _ = kops.kmer_stream_plain(b, q, lens, k, l_pre)
+    valid = shard != kops.INVALID_SHARD
+    shard, keybody = shard[valid], keybody[valid]
+    _, s1, _, qlow = spec.subtable_slots(shard, keybody, t.l_pre, t.kb_bits,
+                                         t.c_bits, 0)
+    e1 = t.table[s1]
+    hit = ((e1 & 0x3FFF) != 0) & (((e1 >> 14) & 1) == 0) & \
+        (kops.srl(e1, 15) == qlow)
+    probes = int(valid.sum())
+    return probes, probes + int((~hit).sum())
+
+
+def tally(r, got, want) -> None:
+    """Add a comparison to a kernel's max_abs_err and mismatches."""
+    err, bad = compare(got, want)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["mismatches"] += bad if bad >= 0 else 1
+
+
 # --------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------
@@ -327,11 +373,19 @@ def check_kernels(opt, ds, bases, quals, dev, timed: bool, corr_reads: int):
     ka = kops.kmer_stream(cb, cq, cl, k, l_pre, 0, with_ret=True)
     ka_p = kops.kmer_stream_plain(cb, cq, cl, k, l_pre, 0, True)
     r = dict(zip(("max_abs_err", "mismatches"), compare(ka, ka_p)))
+    # and LONG_L slots
+    lb, lq, ll = long_batch(bases, quals, opt, dev)
+    tally(r, kops.kmer_stream(lb, lq, ll, k, l_pre, 0, with_ret=True),
+          kops.kmer_stream_plain(lb, lq, ll, k, l_pre, 0, True))
     if timed:
         slots = COUNT_B * COUNT_L
         valid = int((ka[0] != kops.INVALID_SHARD).sum())
-        r["ms"] = cuda_ms(lambda: kops.kmer_stream(
-            cb, cq, cl, k, l_pre, 0, with_ret=carry), 20)
+        call = lambda: kops.kmer_stream(cb, cq, cl, k, l_pre, 0,
+                                        with_ret=carry)
+        r["ms"] = cuda_ms(call, 20)
+        r["kernel_ms"] = graph_ms([call], chip_probe.REPS)
+        r["kernel_ms_long"] = graph_ms([lambda: kops.kmer_stream(
+            lb, lq, ll, k, l_pre, 0, with_ret=carry)], chip_probe.REPS)
         r["plain_ms"] = cuda_ms(lambda: kops.kmer_stream_plain(
             cb, cq, cl, k, l_pre, 0, carry), 2)
         r["bound"] = bound(slots * 2 + COUNT_B * 4
@@ -370,19 +424,31 @@ def check_kernels(opt, ds, bases, quals, dev, timed: bool, corr_reads: int):
     kc = ann.kcov_island(t, b, lens, opt.min_cov)
     kc_p = ann.kcov_island_plain(t, b, lens, opt.min_cov)
     r = dict(zip(("max_abs_err", "mismatches"), compare(kc, kc_p)))
+    # and LONG_L slots
+    tally(r, ann.kcov_island(t, lb, ll, opt.min_cov),
+          ann.kcov_island_plain(t, lb, ll, opt.min_cov))
     B, L = b.shape
     if timed:
-        # one probe at every slot where a full ACGT k-mer ends
-        probes = int((kops.kmer_stream_plain(b, q, lens, k, l_pre)[0]
-                      != kops.INVALID_SHARD).sum())
-        r["ms"] = cuda_ms(lambda: ann.kcov_island(t, b, lens, opt.min_cov), 20)
+        probes, sectors = kc_sectors(t, b, q, lens, k, l_pre)
+        call = lambda: ann.kcov_island(t, b, lens, opt.min_cov)
+        r["ms"] = cuda_ms(call, 20)
+        r["kernel_ms"] = graph_ms([call], chip_probe.REPS)
+        r["sectors"] = sectors
+        r["sectors_per_s"] = sectors / (r["kernel_ms"] * 1e-3)
+        r["kernel_ms_long"] = graph_ms([lambda: ann.kcov_island(
+            t, lb, ll, opt.min_cov)], chip_probe.REPS)
         m = min(CORR_B_PR6, B)
         r["ms_8192"] = cuda_ms(
             lambda: ann.kcov_island(t, b[:m], lens[:m], opt.min_cov), 20)
         r["plain_ms"] = cuda_ms(
             lambda: ann.kcov_island_plain(t, b, lens, opt.min_cov), 2)
-        r["bound"] = bound(B * L * 7 + B * 16 + probes * 2 * SECTOR,
+        r["probes"] = probes
+        # the sectors the function needs: a probe's second nest only where
+        # the first misses (bound_ms_two_sectors counts two a probe)
+        r["bound"] = bound(B * L * 7 + B * 16 + sectors * SECTOR,
                            probes * OPS_PROBE)
+        r["bound_ms_two_sectors"] = bound(
+            B * L * 7 + B * 16 + probes * 2 * SECTOR, probes * OPS_PROBE)[0]
     res["kcov_island"] = r
 
     _, lcov, hcov, isl = kc
@@ -1033,11 +1099,6 @@ def check_sharded(fold, opt, bases, quals, dev, seed, corr_reads: int):
     kc = {"mismatches": 0, "max_abs_err": 0.0}
     kd = {"mismatches": 0, "max_abs_err": 0.0}
 
-    def tally(r, got, want):
-        err, n_diff = compare(got, want)
-        r["mismatches"] += n_diff if n_diff >= 0 else 1
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-
     for R in (2, 4, 8):
         db = R.bit_length() - 1
         owner = spec.subtable_owner(ks, kkb, l_pre, kb_bits, db)
@@ -1332,6 +1393,20 @@ def main() -> int:
         r = res["run_combine"]
         print(f"KB on a {r['rows']}-row counting batch: {r['ms']:.4f} ms "
               f"(median of {MEDIAN_REPS}), bound {r['bound'][0]:.4f} ms",
+              flush=True)
+        r = res["kmer_stream"]
+        print(f"KA on a {COUNT_B} x {COUNT_L} counting batch: call "
+              f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms; {LONG_B} x {LONG_L} slots kernel "
+              f"{r['kernel_ms_long']:.4f} ms", flush=True)
+        r = res["kcov_island"]
+        print(f"KC on the {corr_reads}-read correction batch: call "
+              f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms "
+              f"({r['sectors_per_s'] / 1e9:.2f} G sectors/s of "
+              f"{r['sectors']} for {r['probes']} probes), bound "
+              f"{r['bound'][0]:.4f} ms "
+              f"({r['bound_ms_two_sectors']:.4f} at two sectors a probe); "
+              f"{LONG_B} x {LONG_L} slots kernel {r['kernel_ms_long']:.4f} ms",
               flush=True)
         r = res["ec1_search"]
         r["correction_peak_bytes"] = correction_peak
@@ -1662,8 +1737,10 @@ def main() -> int:
         errs = [r] + ([res33[name]] if name in res33 else [])
         mism = sum(x["mismatches"] for x in errs)
         by_path = {p: ls[name] for p, ls in paths.items()}
-        print(f"{tag} {name}: mismatches {mism}; {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
+        kms = (f" (kernel {r['kernel_ms']:.4f} ms, at {LONG_L} slots "
+               f"{r['kernel_ms_long']:.4f})" if "kernel_ms" in r else "")
+        print(f"{tag} {name}: mismatches {mism}; {r['ms']:.3f} ms{kms}, "
+              f"plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}); launches {by_path}", flush=True)
         if mism != 0:
             fail(f"kernel {name} disagrees with its plain version")
@@ -1691,9 +1768,21 @@ def main() -> int:
                       "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
                       "rows_sent", "ms_fold", "plain_ms_fold",
                       "bound_ms_fold", "rows_fold", "cb_local", "keys",
-                      "rows_by_R", "cb_local_by_R"):
+                      "rows_by_R", "cb_local_by_R", "kernel_ms",
+                      "kernel_ms_long", "probes", "sectors",
+                      "bound_ms_two_sectors"):
             if extra in r:
                 row[extra] = r[extra]
+        if "kernel_ms" in r:
+            row["kernel_timing"] = TIMING_GRAPH
+            row["long_slots"] = LONG_L
+        if name == "kcov_island":
+            # the sectors KC loads, at the saturated random-sector rate
+            # of this run's probe path (KO and KR over 256 MiB)
+            rate = max(x["sectors_per_s"] for x in probe_rows
+                       if x["site"] in SATURATED_SITES)
+            row["sector_ceiling_per_s"] = rate
+            row["sector_ceiling_ms"] = r["sectors"] / rate * 1e3
         if "sharded" in r:
             row["sharded_r2"] = {"ms": r["sharded"]["ms"],
                                  "ms_replicated": r["sharded"]["ms_replicated"],

@@ -1,5 +1,8 @@
 """The eighteen CUDA kernels against their plain PyTorch versions on a
-card (KB at its tile edges, KD with reads deferred to its second pass), the trim path and the device finalize on the card against the same
+card (KA and KC also on rows of 600 slots and on a batch that is not a
+multiple of a block's warps; KB at its tile
+edges, KD with reads deferred to its second pass), the trim path and
+the device finalize on the card against the same
 paths on the CPU (also at -b35, where the verdict is KI's), and the mesh
 path (one NCCL rank, two gloo ranks sharing the card), with the table
 replicated and sharded, against the single-device run.
@@ -78,14 +81,44 @@ def _eq(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _long_rows(b, q, n, seed=11):
+    """n rows of 600 slots, six of the spectrum's reads end to end, with
+    lengths from 550 to 600 (most ending mid-chunk) and a few Ns."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(b), (n, 6))
+    lb = b[idx].reshape(n, -1).copy()
+    lq = q[idx].reshape(n, -1)
+    lb[rng.random(lb.shape) < 0.002] = 4
+    lens = rng.integers(550, 601, n).astype(np.int32)
+    return lb, lq, lens
+
+
+def _batches(card, opt, b, q):
+    """(bases, quality ok, lens) on the card: 1,024 reads of 100 slots,
+    1,021 reads (not a multiple of a block's warps) and 333 rows of 600
+    slots."""
+    lb, lq, ll = _long_rows(b, q, 333)
+    out = []
+    for bb, qq, ln in ((b[:1024], q[:1024], None), (b[:1021], q[:1021], None),
+                       (lb, lq, ll)):
+        if ln is None:
+            ln = np.full((len(bb),), bb.shape[1], np.int32)
+        out.append((torch.from_numpy(np.ascontiguousarray(bb)).to(card),
+                    torch.from_numpy(qq >= 33 + opt.q).to(card),
+                    torch.from_numpy(ln).to(card)))
+    return out
+
+
 def test_ka_kb_match_plain(card, spectrum):
     opt, ds, b, q = spectrum
     k, l_pre = opt.k, opt.effective_l_pre()
-    bases = torch.from_numpy(b[:1024]).to(card)
-    qok = torch.from_numpy(q[:1024] >= 33 + opt.q).to(card)
-    lens = torch.full((1024,), b.shape[1], dtype=torch.int32, device=card)
-    got = kops.kmer_stream(bases, qok, lens, k, l_pre, 5, with_ret=True)
-    _eq(got, kops.kmer_stream_plain(bases, qok, lens, k, l_pre, 5, True))
+    outs = []
+    for bases, qok, lens in _batches(card, opt, b, q):
+        outs.append(kops.kmer_stream(bases, qok, lens, k, l_pre, 5,
+                                     with_ret=True))
+        _eq(outs[-1], kops.kmer_stream_plain(bases, qok, lens, k, l_pre, 5,
+                                             True))
+    got = outs[0]
     shard, keybody, arrp = (t.view(-1) for t in got[:3])
     perm = sdn.stable_order(shard, keybody)
     arrp = arrp[perm]
@@ -155,6 +188,9 @@ def test_correct_file_device_default_batch(card, spectrum, tmp_path):
 def test_kc_kd_match_plain(card, spectrum):
     opt, ds, b, q = spectrum
     t = ds.table
+    for bases, _, lens in _batches(card, opt, b, q)[1:]:
+        _eq(ann.kcov_island(t, bases, lens, opt.min_cov),
+            ann.kcov_island_plain(t, bases, lens, opt.min_cov))
     bases = torch.from_numpy(b[:256]).to(card)
     qf = torch.from_numpy(q[:256] >= 33 + opt.q).to(card)
     lens = torch.full((256,), b.shape[1], dtype=torch.int32, device=card)

@@ -1,11 +1,13 @@
 """The CUDA kernels' per-read bodies, compiled for the CPU, against the
 plain PyTorch versions.
 
-csrc/*.cuh hold each kernel's per-read (KA, KC, KD, KH), per-row (KB,
-KE, KF, KG, KJ, KK), per-block (KI), per-key (KL, KN), per-tile (KM) or
-per-query, per-element and per-row (the probe kernels KO-KR) body
-as __host__ __device__ functions; csrc/host_shim.cpp wraps them in loops
-over the reads, rows or tiles that one CUDA thread or block would take.  Here g++ builds
+csrc/*.cuh hold each kernel's per-slot and per-chunk (KA, KC), per-read
+(KD, KH), per-row (KB, KE, KF, KG, KJ, KK), per-block (KI), per-key (KL,
+KN), per-tile (KM) or per-query, per-element and per-row (the probe
+kernels KO-KR) body as __host__ __device__ functions; csrc/host_shim.cpp
+wraps them in loops over the reads, rows or tiles that one CUDA thread
+or block would take, and for KA and KC over a warp's chunks and lanes,
+building its ballot words lane by lane.  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
 kernels' logic runs on a machine without a card.  Inputs are seeded
 numpy batches and a tests/datagen.py dataset (a 12 kb genome, 100 bp
@@ -13,8 +15,10 @@ reads, 1% errors).  Every output is an integer: the tolerance is exact
 equality."""
 
 import ctypes
+import functools
 import re
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -106,9 +110,38 @@ def _batch(seed, B=48, L=96):
             torch.from_numpy(lens))
 
 
-@pytest.mark.parametrize("k", [17, 23, 32, 33, 63])
-def test_ka_body_matches_plain(shim, k):
-    bases, qok, lens = _batch(k)
+def _edge_batch(seed, L, B=48):
+    """_batch at L slots with the warp's chunk edges placed: rows 3-5 all
+    ACGT but an N at slot 31, 32 or 63, rows 6-8 all ACGT and quality-ok
+    but a low-quality base there, and reads whose length ends mid-chunk."""
+    bases, qok, lens = (t.numpy().copy() for t in _batch(seed, B, L))
+    rng = np.random.default_rng(seed + 1)
+    for row, slot in zip(range(3, 9), (31, 32, 63, 31, 32, 63)):
+        bases[row] = rng.integers(0, 4, L)
+        qok[row] = True
+        lens[row] = L
+        if slot < L:
+            if row < 6:
+                bases[row, slot] = 4
+            else:
+                qok[row, slot] = False
+    lens[9:15] = [min(n, L) for n in (1, 31, 33, 45, 97, L - 1)]
+    return (torch.from_numpy(bases), torch.from_numpy(qok),
+            torch.from_numpy(lens))
+
+
+CHUNK_LS = (31, 32, 33, 100, 600)
+EDGE_KS = (17, 23, 32, 33, 63)
+# (k, L): the first five at _batch's 96 slots keep their ids; then every
+# k at slot counts around the warp's 32-slot chunks and at 600
+KA_CASES = [pytest.param(k, None, id=str(k)) for k in EDGE_KS] + [
+    pytest.param(k, L, id=f"k{k}-L{L}") for L in CHUNK_LS for k in EDGE_KS]
+
+
+@pytest.mark.parametrize("k,L", KA_CASES)
+def test_ka_body_matches_plain(shim, k, L):
+    """KA's warp, emulated lane by lane, against the plain version."""
+    bases, qok, lens = _batch(k) if L is None else _edge_batch(k, L)
     B, L = bases.shape
     o = Opts()
     o.k = k
@@ -211,12 +244,20 @@ def test_kb_tile_edges_match_plain(shim, N, invalid, with_ret):
         _assert_runs_equal(got, want)
 
 
-@pytest.fixture(scope="module", params=[21, 33])
-def spectrum(request, tmp_path_factory):
+@functools.lru_cache(maxsize=None)
+def _counted_spectrum(k):
     """A port spectrum (CPU, plain versions) of a small dataset, and an
     encoded batch of its reads."""
-    k = request.param
-    d = tmp_path_factory.mktemp(f"shim{k}")
+    with tempfile.TemporaryDirectory() as d:
+        return _count_spectrum(k, d)
+
+
+@pytest.fixture(scope="module", params=[21, 33])
+def spectrum(request):
+    return _counted_spectrum(request.param)
+
+
+def _count_spectrum(k, d):
     genome = datagen.make_genome(12000, seed=61)
     reads = datagen.simulate_reads(genome, 1500, read_len=100,
                                    err_rate=0.01, seed=62)
@@ -279,13 +320,108 @@ def _kd_host(shim, t, opt, mode, bases, qf, lens, lcov, hcov, isl,
     return packed, out
 
 
-def test_kc_body_matches_plain(shim, spectrum):
-    opt, ds, bases, _, lens = spectrum
-    want = tann.kcov_island_plain(ds.table, bases, lens, opt.min_cov)
-    got = _kc_host(shim, ds.table, bases, lens, opt.min_cov)
+MIN_COV = Opts().min_cov
+
+
+def _kc_table(k, L, db=None, seed=5):
+    """A table over _edge_batch(seed, L)'s own k-mers, with rows whose
+    solid k-mer ends are placed: row 10 two equal longest runs (the first
+    wins), row 11 the longest run reaching the read's end, row 12 equal
+    runs of which the second reaches the end.  Other keys get random
+    counts, a tenth none.  Replicated (db None) or 2^db sub-tables built
+    by the plain KN.  Returns (table, bases, lens, expected islands of
+    rows 10-12 or None where the read holds too few k-mers)."""
+    bases, qok, lens = _edge_batch(seed, L)
+    rng = np.random.default_rng(seed + L + k)
+    b = bases.numpy()
+    b[10:13] = rng.integers(0, 4, (3, L))
+    lens[10:13] = L
+    o = Opts()
+    o.k = k
+    l_pre = o.effective_l_pre()
+    kb_bits = tk.keybody_bits(k, l_pre)
+    shard, keybody, _, _ = tk.kmer_stream_plain(bases, qok, lens, k, l_pre)
+    keys = np.stack([shard.numpy().ravel(), keybody.numpy().ravel()], 1)
+    valid = keys[:, 0] != tk.INVALID_SHARD
+    uniq, inv = np.unique(keys[valid], axis=0, return_inverse=True)
+    inv = inv.ravel()
+    payload = (rng.integers(1, 7, len(uniq))
+               | rng.integers(0, 9, len(uniq)) << 8)
+    payload[rng.random(len(uniq)) < 0.1] = 0
+    slot_key = np.full(keys.shape[0], -1)
+    slot_key[valid] = inv
+    slot_key = slot_key.reshape(bases.shape)
+    n = L - (k - 1)  # slots where a k-mer ends
+    R = n // 4
+    islands = None
+    if R >= 1:
+        a = k - 1
+        runs = {10: [(a + 1, R), (a + R + 2, R)],
+                11: [(a, R - 1), (L - R, R)],
+                12: [(a, R), (L - R, R)]}
+        for row, rs in runs.items():
+            solid = np.zeros(L, bool)
+            for start, m in rs:
+                solid[start:start + m] = True
+            ids = slot_key[row, a:]
+            payload[ids] = np.where(solid[a:], MIN_COV + 1, 1) | 5 << 8
+        islands = [[1, a + 1 + R, 1], [L - R - k + 1, L, 1],
+                   [0, a + R, 1]]
+    keep = payload != 0
+    ks, kb = (torch.from_numpy(c.astype(np.int64))
+              for c in (uniq[keep, 0], uniq[keep, 1]))
+    pl = torch.from_numpy(payload[keep].astype(np.int32))
+    if db is None:
+        c_bits = TC.table_c_bits(len(ks), k, l_pre)
+        table, ok = tspec.cuckoo_build_plain(ks, kb, pl, k, l_pre, kb_bits,
+                                             c_bits)
+        assert ok
+        return (tspec.SpecTable(table, k, l_pre, kb_bits, c_bits), bases,
+                lens, islands)
+    owner = tspec.subtable_owner(ks, kb, l_pre, kb_bits, db)
+    cb_local = TC.subtable_bits(int(torch.bincount(owner).max()), k, l_pre,
+                                db)
+    subs = []
+    for r in range(1 << db):
+        sel = owner == r
+        t, ok = tspec.cuckoo_build_local_plain(ks[sel], kb[sel], pl[sel],
+                                               l_pre, kb_bits, db + cb_local,
+                                               db)
+        assert ok
+        subs.append(t)
+    return (tspec.sharded_table(subs, k, l_pre, kb_bits, db), bases, lens,
+            islands)
+
+
+# the counted spectra at k 21 and 33 keep their ids; then tables over
+# the reads' own k-mers at every k and slot count around the chunks, and
+# sharded sub-tables
+KC_CASES = [pytest.param(k, None, None, id=str(k)) for k in (21, 33)] + [
+    pytest.param(k, L, None, id=f"k{k}-L{L}")
+    for L in CHUNK_LS for k in EDGE_KS] + [
+    pytest.param(k, L, db, id=f"k{k}-L{L}-sharded{db}")
+    for k, L, db in ((23, 100, 1), (33, 600, 3), (63, 600, 1))]
+
+
+@pytest.mark.parametrize("k,L,db", KC_CASES)
+def test_kc_body_matches_plain(shim, k, L, db):
+    """KC's warp, emulated lane by lane, against the plain version; the
+    placed islands take the first of equal runs and end a run at the
+    read's end."""
+    if L is None:
+        opt, ds, bases, _, lens = _counted_spectrum(k)
+        t, min_cov, islands = ds.table, opt.min_cov, None
+    else:
+        t, bases, lens, islands = _kc_table(k, L, db)
+        min_cov = MIN_COV
+    want = tann.kcov_island_plain(t, bases, lens, min_cov)
+    got = _kc_host(shim, t, bases, lens, min_cov)
     for name, w, g in zip(("occ", "lcov", "hcov", "isl"), want, got):
         torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
-    assert bool((want[3][:, 2] == 1).any())
+    if L is None or islands is not None:
+        assert bool((want[3][:, 2] == 1).any())
+    if islands is not None:
+        assert want[3][10:13].tolist() == islands
 
 
 @pytest.mark.parametrize("caps", [(tsrch.HEAP_CAP, tsrch.STACK_CAP), (24, 120)],

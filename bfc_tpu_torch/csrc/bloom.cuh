@@ -1,4 +1,4 @@
-// Blocked Bloom filter addressing and the per-row bodies of KE, KF, KG, KH.
+// Blocked Bloom filter addressing and the per-row bodies of KE, KG, KH.
 //
 // bloom_probe_bits is the scalar form of bfc_tpu/ops/spectrum.py:
 // bloom_probe_bits (:184) and of the reference's bbf.c:27-37: the low
@@ -6,7 +6,8 @@
 // h2 the stride (bumped when h2 & 31 == 0), and offsets in byte 0 of the
 // block (z < 8, the reference's spin-lock byte) are skipped.  Bit ids are
 // 64-bit: at bf_shift >= 33 they reach past 2^32.  All n_hashes bits of
-// one hash fall in one 64-byte block.
+// one hash fall in one 64-byte block, so KF and KI judge a row from its
+// block and its offsets alone (csrc/verdict.cuh).
 //
 // The bodies are __host__ __device__ so that csrc/host_shim.cpp can run
 // them on the CPU; the atomics become plain read-modify-writes there.
@@ -19,15 +20,39 @@
 // at most 8 of them in byte 0: up to 24 hashes always find their bits.
 #define BFC_MAX_HASHES 16
 
-BFC_HD void bloom_probe_bits(uint64_t ret, int bf_shift, int n_hashes,
-                             uint64_t* out) {
-    int x = bf_shift - BFC_BLK_SHIFT;
-    uint64_t base = (ret & bfc_mask(x)) << BFC_BLK_SHIFT;
-    uint32_t z = (uint32_t)(ret >> x) & BFC_BLK_MASK;
+// The 512-bit block of ret.
+BFC_HD uint64_t bloom_block(uint64_t ret, int bf_shift) {
+    return ret & bfc_mask(bf_shift - BFC_BLK_SHIFT);
+}
+
+// z | h2 << 9: the first offset and the stride within the block.
+BFC_HD uint32_t bloom_zh(uint64_t ret, int bf_shift) {
+    uint32_t z = (uint32_t)(ret >> (bf_shift - BFC_BLK_SHIFT)) & BFC_BLK_MASK;
     uint32_t h2 = (uint32_t)(ret >> bf_shift) & BFC_BLK_MASK;
     if ((h2 & 31u) == 0) h2 = (h2 + 1) & BFC_BLK_MASK;
-    for (int j = 0; j < n_hashes; z = (z + h2) & BFC_BLK_MASK)
-        if (z >= 8) out[j++] = base | z;
+    return z | h2 << 9;
+}
+
+// Calls f(z) for each of the n_hashes probed offsets of zh, in order:
+// n_hashes + 8 steps hold them all (as in the plain version) and bound
+// the walk whatever zh holds.
+template <typename F>
+BFC_HD void bloom_offsets(uint32_t zh, int n_hashes, F f) {
+    uint32_t z = zh & BFC_BLK_MASK, h2 = zh >> 9;
+    for (int j = 0, t = 0; j < n_hashes && t < n_hashes + 8;
+         t++, z = (z + h2) & BFC_BLK_MASK)
+        if (z >= 8) {
+            f(z);
+            j++;
+        }
+}
+
+BFC_HD void bloom_probe_bits(uint64_t ret, int bf_shift, int n_hashes,
+                             uint64_t* out) {
+    uint64_t base = bloom_block(ret, bf_shift) << BFC_BLK_SHIFT;
+    int j = 0;
+    bloom_offsets(bloom_zh(ret, bf_shift), n_hashes,
+                  [&](uint32_t z) { out[j++] = base | z; });
 }
 
 // True where every probed bit of ret is set in the u32 words (bbf.c:47-63).
@@ -41,10 +66,8 @@ BFC_HD bool bloom_query(const uint32_t* words, uint64_t ret, int bf_shift,
 }
 
 #ifdef __CUDA_ARCH__
-#define BFC_ATOMIC_MAX_U32(p, v) atomicMax((p), (v))
 #define BFC_ATOMIC_OR_U32(p, v) atomicOr((p), (v))
 #else
-#define BFC_ATOMIC_MAX_U32(p, v) (*(p) = *(p) > (v) ? *(p) : (v))
 #define BFC_ATOMIC_OR_U32(p, v) (*(p) |= (v))
 #endif
 
@@ -60,34 +83,6 @@ BFC_HD void ke_row(int64_t i, const int64_t* arr, const int64_t* n,
     a_lo[i] = (int32_t)(uint32_t)a;
     nfh[i] = (int32_t)(cn | ch << 9 | (uint32_t)fh[i] << 16 |
                        (uint32_t)(a >> 32) << 17);
-}
-
-// KF scatter, one row: the inverted arrival ~a at every probed bit, kept
-// as the maximum, so the dense array ends as ~(earliest arrival) per bit
-// (0 = never probed; spectrum.py:adjudicate_sketch, :843).
-BFC_HD void kf_scatter_row(int64_t i, const int64_t* ret, const int32_t* arr,
-                           int bf_shift, int n_hashes, uint32_t* dense) {
-    uint64_t bits[BFC_MAX_HASHES];
-    bloom_probe_bits((uint64_t)ret[i], bf_shift, n_hashes, bits);
-    uint32_t inv = ~(uint32_t)arr[i];
-    for (int j = 0; j < n_hashes; j++)
-        BFC_ATOMIC_MAX_U32(dense + bits[j], inv);
-}
-
-// KF verdict, one row: fp, the first occurrence found all its bits set by
-// an earlier arrival, and keep, the k-mer enters bf_high because
-// n - 1 + fp >= 1 (trimmer.py:filter_keep_rets, :81).
-BFC_HD void kf_verdict_row(int64_t i, const int64_t* ret, const int32_t* arr,
-                           const int32_t* n, int bf_shift, int n_hashes,
-                           const uint32_t* dense, uint8_t* fp,
-                           uint8_t* keep) {
-    uint64_t bits[BFC_MAX_HASHES];
-    bloom_probe_bits((uint64_t)ret[i], bf_shift, n_hashes, bits);
-    uint32_t inv = ~(uint32_t)arr[i];
-    int f = 1;
-    for (int j = 0; j < n_hashes; j++) f &= dense[bits[j]] > inv;
-    fp[i] = (uint8_t)f;
-    keep[i] = (uint8_t)(n[i] - 1 + f >= 1);
 }
 
 // KG, one row: OR the probed bits of a kept row into the u32 words

@@ -1,4 +1,5 @@
-// KF: first-occurrence Bloom verdicts and the bf_high keep set.
+// KF: first-occurrence Bloom verdicts and the bf_high keep set, on
+// arrivals below 2^32 - 1.
 //
 // Replaces bfc_tpu/ops/spectrum.py:adjudicate_sketch (:843) with the keep
 // rule of bfc_tpu/models/trimmer.py:filter_keep_rets (:81).  The reference
@@ -6,55 +7,28 @@
 // counts an occurrence once its bits were all set before it (count.c:
 // 71-87); for a distinct k-mer only its first occurrence can differ, and
 // it found its bits set exactly when, at every probed bit, some other
-// k-mer's first arrival came earlier.  One launch zeroes a u32 scratch of
-// 2^bf_shift entries and scatters ~arrival with atomicMax (the maximum of
-// inverted arrivals is the earliest arrival); a second reads it back.
-// Bit ids are 64-bit: bfc_tpu casts them to u32 (spectrum.py:856), which
-// aliases bits at bf_shift >= 33.  Arrivals must fit 32 bits (checked by
-// the caller).
+// k-mer's first arrival came earlier.  The TPU kept the earliest arrival
+// of every one of the 2^bf_shift bits in one array (4 bytes a bit: 32 GiB
+// at -b33).  Here the rows are grouped by superblocks of Bloom blocks,
+// then by block in shared memory, and each block is judged there
+// (csrc/verdict.cuh, u32 arrivals): 13 bytes a row and 4 bytes a
+// superblock of scratch.  keep = n - 1 + fp >= 1 is judged beside fp from
+// the class the scatter packed into the row's record.
 //
-// Bound: bytes.  Zeroing the scratch writes 4 * 2^bf_shift bytes (32 GiB
-// at the default -b33), against ~18 bytes a row and two random 64-byte
-// blocks a row (all of a row's bits share one 512-bit Bloom block).  The
-// memset runs at the card's fill rate; the row passes are one thread a
-// row and their atomics scatter.
-#include "bloom.cuh"
-
-#include <cuda_runtime.h>
-
-__global__ void kf_scatter_kernel(long long C, const int64_t* ret,
-                                  const int32_t* arr, int bf_shift,
-                                  int n_hashes, uint32_t* dense) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < C) kf_scatter_row(i, ret, arr, bf_shift, n_hashes, dense);
-}
-
-__global__ void kf_verdict_kernel(long long C, const int64_t* ret,
-                                  const int32_t* arr, const int32_t* n,
-                                  int bf_shift, int n_hashes,
-                                  const uint32_t* dense, uint8_t* fp,
-                                  uint8_t* keep) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < C)
-        kf_verdict_row(i, ret, arr, n, bf_shift, n_hashes, dense, fp, keep);
-}
+// Bound: bytes.  ret, arr and n read once, fp and keep written once: 18
+// bytes a row.  The design moves more: ret twice, an 8-byte record
+// written to a slot of its superblock's segment and read back, two
+// atomics a row on the superblock histogram (in L2), a slot and a verdict
+// byte a row written and read back, the latter at random.
+#include "verdict.cuh"
 
 extern "C" int kf_launch(long long C, const void* ret, const void* arr,
-                         const void* n, int bf_shift, int n_hashes,
-                         void* dense, void* fp, void* keep, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(dense, 0, (size_t)4 << bf_shift, s);
-    if (e != cudaSuccess) return (int)e;
-    int threads = 256;
-    int blocks = (int)((C + threads - 1) / threads);
-    if (C > 0) {
-        kf_scatter_kernel<<<blocks, threads, 0, s>>>(
-            C, (const int64_t*)ret, (const int32_t*)arr, bf_shift, n_hashes,
-            (uint32_t*)dense);
-        kf_verdict_kernel<<<blocks, threads, 0, s>>>(
-            C, (const int64_t*)ret, (const int32_t*)arr, (const int32_t*)n,
-            bf_shift, n_hashes, (const uint32_t*)dense, (uint8_t*)fp,
-            (uint8_t*)keep);
-    }
-    return (int)cudaGetLastError();
+                         const void* n, int bf_shift, int sb, int n_hashes,
+                         void* rec, void* slot, void* flags, void* cnt,
+                         void* sums, void* fp, void* keep, void* stream) {
+    return vd_launch<uint32_t>(
+        C, (const int64_t*)ret, (const uint32_t*)arr, (const int32_t*)n,
+        bf_shift, sb, n_hashes, (VdRec<uint32_t>*)rec, (uint32_t*)slot,
+        (uint8_t*)flags, (uint32_t*)cnt, (uint32_t*)sums, (uint8_t*)fp,
+        (uint8_t*)keep, (cudaStream_t)stream);
 }

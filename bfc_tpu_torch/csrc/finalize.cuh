@@ -1,5 +1,5 @@
-// Per-row bodies of the device finalize: KI (first-occurrence verdict by
-// Bloom-block replay), KJ (derive_ret) and KK (payloads and histograms).
+// Per-row bodies of the device finalize: KJ (derive_ret) and KK (payloads
+// and histograms).  KI's verdict is csrc/verdict.cuh.
 //
 // The bodies are __host__ __device__ so that csrc/host_shim.cpp can run
 // them on the CPU and the tests can hold them against the plain versions.
@@ -44,42 +44,4 @@ BFC_HD int32_t kk_row(int64_t i, const int64_t* n, const int64_t* n_high,
     payload[i] = p;
     keep[i] = (uint8_t)(p != 0);
     return p;
-}
-
-// KI, one Bloom block: its rows in arrival order (rows perm[b..e), sorted
-// by (block, arrival)) replay the reference's inserts (count.c:71-87) over
-// the block's 512 bits in bm (16 words, zeroed here).  A row's verdict is
-// whether all its bits were set before it; rows of equal arrival do not
-// see each other, as in the sort formulation (spectrum.py:
-// adjudicate_first_occurrence, :217).  All bits of a row lie in its own
-// block (bloom.cuh), so blocks are independent and this is exact at any
-// arrival width.
-BFC_HD void ki_block(int64_t b, int64_t e, const int64_t* perm,
-                     const int64_t* ret, const int64_t* arr, int bf_shift,
-                     int n_hashes, uint32_t* bm, uint8_t* fp) {
-    uint64_t bits[BFC_MAX_HASHES];
-    for (int w = 0; w < 16; w++) bm[w] = 0;
-    int64_t g = b;  // first row of the current arrival
-    for (int64_t t = b; t < e; t++) {
-        int64_t r = perm[t];
-        bloom_probe_bits((uint64_t)ret[r], bf_shift, n_hashes, bits);
-        int all = 1;
-        for (int j = 0; j < n_hashes; j++) {
-            uint32_t z = (uint32_t)bits[j] & BFC_BLK_MASK;
-            all &= (int)(bm[z >> 5] >> (z & 31)) & 1;
-        }
-        fp[r] = (uint8_t)all;
-        if (t + 1 < e && arr[perm[t + 1]] == arr[r]) continue;
-        // the arrival's last row: set its bits, then those of its ties
-        for (int64_t u = t; u >= g; u--) {
-            if (u < t)
-                bloom_probe_bits((uint64_t)ret[perm[u]], bf_shift, n_hashes,
-                                 bits);
-            for (int j = 0; j < n_hashes; j++) {
-                uint32_t z = (uint32_t)bits[j] & BFC_BLK_MASK;
-                bm[z >> 5] |= 1u << (z & 31);
-            }
-        }
-        g = t + 1;
-    }
 }

@@ -17,6 +17,94 @@
 #include "probe.cuh"
 #include "route_rows.cuh"
 #include "run_combine.cuh"
+#include "verdict.cuh"
+
+// KF and KI: the verdict's steps in the kernels' order.  The count, an
+// inclusive scan, the scatter (rows from the last when reverse is set, so
+// every segment holds its rows in the other order), then each superblock
+// as a verdict CTA takes it: staged (grouped by block, an index a row in
+// the scatter's order; blocks of at most VD_PAIR rows a row at a time by
+// vd_pair_fp, then group g's larger blocks g, g + VD_NG, ... through the
+// three table steps on that group's 512 entries) or read whole (block by
+// block, the CTA's one table cleared after each); then the gather.
+// Returns the entries left unreset at the end (0).
+template <typename A>
+static long long vd_host(long long C, const int64_t* ret, const A* arr,
+                         const int32_t* n, int bf_shift, int sb, int n_hashes,
+                         int reverse, uint8_t* fp, uint8_t* keep) {
+    const int NG = VD_THREADS / VD_GROUP;
+    uint32_t n_super = 1u << (bf_shift - BFC_BLK_SHIFT - sb), nb = 1u << sb;
+    uint32_t* cnt = new uint32_t[n_super]();
+    for (long long i = 0; i < C; i++) vd_count_row(i, ret, bf_shift, sb, cnt);
+    for (uint32_t q = 1; q < n_super; q++) cnt[q] += cnt[q - 1];
+    VdRec<A>* rec = new VdRec<A>[C + 1];
+    uint32_t* slot = new uint32_t[C + 1];
+    uint8_t* flags = new uint8_t[C + 1];
+    for (long long t = 0; t < C; t++)
+        vd_scatter_row(reverse ? C - 1 - t : t, ret, arr, n, bf_shift, sb, cnt,
+                       rec, slot);
+    A* mins = new A[NG * 512];
+    for (int j = 0; j < NG * 512; j++) mins[j] = (A)~(A)0;
+    uint32_t* bstart = new uint32_t[nb + 1];
+    uint16_t* perm = new uint16_t[VD_CAP];
+    for (uint32_t q = 0; q < n_super; q++) {
+        uint32_t s = cnt[q], m = (q + 1 < n_super ? cnt[q + 1] : C) - s;
+        const VdRec<A>* recs = rec + s;
+        uint8_t* fl = flags + s;
+        if (vd_staged(m, sb)) {
+            for (uint32_t b = 0; b <= nb; b++) bstart[b] = 0;
+            for (uint32_t r = 0; r < m; r++)
+                bstart[vd_local_block(recs[r]) + 1]++;
+            for (uint32_t b = 1; b <= nb; b++) bstart[b] += bstart[b - 1];
+            for (uint32_t b = 0, p = 0; b < nb; b++)
+                for (uint32_t r = 0; r < m; r++)
+                    if (vd_local_block(recs[r]) == b) perm[p++] = (uint16_t)r;
+            for (uint32_t x = 0; x < m; x++) {
+                uint32_t r = perm[x], b = vd_local_block(recs[r]);
+                if (bstart[b + 1] - bstart[b] <= VD_PAIR)
+                    fl[r] = vd_flag(recs[r],
+                                    vd_pair_fp(recs[r], recs, perm, bstart[b],
+                                               bstart[b + 1], n_hashes));
+            }
+            for (int g = 0; g < NG; g++)
+                for (uint32_t b = g; b < nb; b += NG) {
+                    uint32_t bs = bstart[b], be = bstart[b + 1];
+                    if (be - bs <= VD_PAIR) continue;
+                    A* t = mins + g * 512;
+                    for (uint32_t x = bs; x < be; x++)
+                        vd_min_row(recs[perm[x]], n_hashes, t);
+                    for (uint32_t x = bs; x < be; x++)
+                        fl[perm[x]] = vd_flag(recs[perm[x]],
+                                              vd_judge(recs[perm[x]],
+                                                       n_hashes, t));
+                    for (uint32_t x = bs; x < be; x++)
+                        vd_reset_row(recs[perm[x]], n_hashes, t);
+                }
+        } else {
+            for (uint32_t b = 0; b < nb; b++) {
+                for (uint32_t r = 0; r < m; r++)
+                    if (vd_local_block(recs[r]) == b)
+                        vd_min_row(recs[r], n_hashes, mins);
+                for (uint32_t r = 0; r < m; r++)
+                    if (vd_local_block(recs[r]) == b)
+                        fl[r] = vd_flag(recs[r],
+                                        vd_judge(recs[r], n_hashes, mins));
+                for (int j = 0; j < 512; j++) mins[j] = (A)~(A)0;
+            }
+        }
+    }
+    for (long long i = 0; i < C; i++) vd_gather_row(i, slot, flags, fp, keep);
+    long long dirty = 0;
+    for (int j = 0; j < NG * 512; j++) dirty += mins[j] != (A)~(A)0;
+    delete[] cnt;
+    delete[] rec;
+    delete[] slot;
+    delete[] flags;
+    delete[] mins;
+    delete[] bstart;
+    delete[] perm;
+    return dirty;
+}
 
 extern "C" {
 
@@ -166,14 +254,11 @@ void ke_host(long long C, const int64_t* arr, const int64_t* n,
     for (long long i = 0; i < C; i++) ke_row(i, arr, n, nh, fh, a_lo, nfh);
 }
 
-// KF's two passes in order; dense must hold 2^bf_shift zeroed entries.
-void kf_host(long long C, const int64_t* ret, const int32_t* arr,
-             const int32_t* n, int bf_shift, int n_hashes, uint32_t* dense,
-             uint8_t* fp, uint8_t* keep) {
-    for (long long i = 0; i < C; i++)
-        kf_scatter_row(i, ret, arr, bf_shift, n_hashes, dense);
-    for (long long i = 0; i < C; i++)
-        kf_verdict_row(i, ret, arr, n, bf_shift, n_hashes, dense, fp, keep);
+long long kf_host(long long C, const int64_t* ret, const uint32_t* arr,
+                  const int32_t* n, int bf_shift, int sb, int n_hashes,
+                  int reverse, uint8_t* fp, uint8_t* keep) {
+    return vd_host<uint32_t>(C, ret, arr, n, bf_shift, sb, n_hashes, reverse,
+                             fp, keep);
 }
 
 // words must hold 2^(bf_shift-5) zeroed entries.
@@ -191,13 +276,11 @@ void kh_host(const uint8_t* bases, const int32_t* lens, int B, int L, int k,
                          n_hashes);
 }
 
-void ki_host(long long n_blocks, const int64_t* starts, const int64_t* perm,
-             const int64_t* ret, const int64_t* arr, int bf_shift,
-             int n_hashes, uint8_t* fp) {
-    uint32_t bm[16];
-    for (long long s = 0; s < n_blocks; s++)
-        ki_block(starts[s], starts[s + 1], perm, ret, arr, bf_shift,
-                 n_hashes, bm, fp);
+long long ki_host(long long C, const int64_t* ret, const uint64_t* arr,
+                  int bf_shift, int sb, int n_hashes, int reverse,
+                  uint8_t* fp) {
+    return vd_host<uint64_t>(C, ret, arr, nullptr, bf_shift, sb, n_hashes,
+                             reverse, fp, nullptr);
 }
 
 void kj_host(long long C, const int64_t* shard, const int64_t* keybody,

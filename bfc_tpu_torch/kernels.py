@@ -98,7 +98,7 @@ KE = Kernel("pack_pull", {
     "ke_launch": [_LL] + [_P] * 7,
 })
 KF = Kernel("bloom_adjudicate", {
-    "kf_launch": [_LL, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "kf_launch": [_LL, _P, _P, _P, _I, _I, _I] + [_P] * 8,
 })
 KG = Kernel("bloom_build", {
     "kg_launch": [_LL, _P, _P, _I, _I, _P, _P],
@@ -107,7 +107,7 @@ KH = Kernel("max_streak", {
     "kh_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P],
 })
 KI = Kernel("first_occurrence", {
-    "ki_launch": [_LL, _P, _P, _P, _P, _I, _I, _P, _P],
+    "ki_launch": [_LL, _P, _P, _I, _I, _I] + [_P] * 7,
 })
 KJ = Kernel("derive_ret", {
     "kj_launch": [_LL, _P, _P, _I, _I, _P, _P],

@@ -42,7 +42,11 @@ _ALT_C2 = 0x85EBCA6B
 _U64 = (1 << 64) - 1
 BLK_SHIFT = 9
 MAX_HASHES = 16  # csrc/bloom.cuh:BFC_MAX_HASHES
-ARRIVAL_LIMIT = 0xFFFFFFFF  # KF keeps ~arrival in u32; 0 marks "unset"
+ARRIVAL_LIMIT = 0xFFFFFFFF  # KF keeps arrivals in u32; all-ones marks "unset"
+RECORD_BYTES = {"KF": 8, "KI": 16}  # a row's record (csrc/verdict.cuh)
+SCAN_TILE = 2048           # histogram words a scan tile (VD_SCAN_TILE)
+SB_MAX = 8                 # at most 2^8 blocks a superblock (VD_MAX_SB)
+SB_ROWS = 1024             # a superblock's rows, at most, on average
 
 
 class SpecTable(NamedTuple):
@@ -378,15 +382,67 @@ def check_n_hashes(n_hashes: int) -> None:
         raise ValueError(f"n_hashes {n_hashes} outside 1..{MAX_HASHES}")
 
 
+def verdict_shift(rows: int, bf_shift: int) -> int:
+    """S: KF and KI group the rows by superblocks of 2^S Bloom blocks,
+    the most blocks (up to 2^SB_MAX) that keep a superblock at SB_ROWS
+    rows or fewer on average (csrc/verdict.cuh)."""
+    x = max(bf_shift - BLK_SHIFT, 0)
+    s = 0
+    while s < min(SB_MAX, x) and rows << (s + 1) <= SB_ROWS << x:
+        s += 1
+    return s
+
+
+def _verdict_layout(rows: int, bf_shift: int, kernel: str):
+    """Byte offsets in the verdict's scratch of its records, slots,
+    superblock histogram, scan tile sums and verdict bytes, and its
+    size."""
+    n_super = 1 << (max(bf_shift - BLK_SHIFT, 0) - verdict_shift(rows,
+                                                                 bf_shift))
+    slot = RECORD_BYTES[kernel] * rows
+    cnt = slot + 4 * rows
+    sums = cnt + 4 * n_super
+    flags = sums + 4 * -(-n_super // SCAN_TILE)
+    return slot, cnt, sums, flags, flags + rows
+
+
+def verdict_bytes(rows: int, bf_shift: int, kernel: str) -> int:
+    """Device scratch of KF's or KI's verdict: a record (8 or 16 bytes), a
+    slot (4) and a verdict byte a row, the superblock histogram (4 bytes
+    a superblock) and one word a scan tile of it."""
+    return _verdict_layout(rows, bf_shift, kernel)[-1]
+
+
+def verdict_scratch(rows: int, bf_shift: int, dev, kernel: str):
+    """The verdict's scratch on dev: (the tensor, which must outlive the
+    launch, S, and the addresses of its records, slots, verdict bytes,
+    histogram and tile sums).  Raises where the card lacks the bytes or
+    the rows pass the 31-bit slots of the histogram."""
+    if rows >= 1 << 31:
+        raise ValueError(f"the verdict takes fewer than 2^31 rows, not {rows}")
+    slot, cnt, sums, flags, need = _verdict_layout(rows, bf_shift, kernel)
+    free = kernels.device_free_bytes(dev)
+    if need > free:
+        raise RuntimeError(
+            f"the {kernel} verdict of {rows} rows at -b{bf_shift} needs "
+            f"{need} bytes of device scratch "
+            f"({RECORD_BYTES[kernel] + 5} a row, 4 a superblock of Bloom "
+            f"blocks), {free} free")
+    buf = torch.empty((need,), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    return (buf, verdict_shift(rows, bf_shift), base, base + slot,
+            base + flags, base + cnt, base + sums)
+
+
 def adjudicate_sketch(ret, arr, n, bf_shift: int, n_hashes: int):
     """Which distinct k-mers enter the trim mode's bf_high (kernel KF).
 
     fp: the first occurrence found all its Bloom bits set by an earlier
     arrival; keep: n - 1 + fp >= 1.  Inputs as adjudicate_sketch_plain;
-    arrivals must be below 2^32 - 1 (the caller checks).  On the card a
-    u32 scratch of 2^bf_shift entries (4 * 2^bf_shift bytes) holds the
-    inverted earliest arrival of every bit; a card without that much free
-    memory raises."""
+    arrivals must be below 2^32 - 1 (the caller checks).  On the card the
+    rows are grouped by superblock of Bloom blocks, then by block in
+    shared memory, and judged there (csrc/verdict.cuh, u32 arrivals), in
+    verdict_bytes of scratch; a card without them free raises."""
     C = ret.shape[0]
     dev = ret.device
     kernels.check(ret, "ret", torch.int64, (C,), dev)
@@ -395,39 +451,13 @@ def adjudicate_sketch(ret, arr, n, bf_shift: int, n_hashes: int):
     check_n_hashes(n_hashes)
     if dev.type == "cpu":
         return adjudicate_sketch_plain(ret, arr, n, bf_shift, n_hashes)
-    need = 4 << bf_shift
-    free = kernels.device_free_bytes(dev)
-    if need > free:
-        raise RuntimeError(
-            f"the Bloom adjudicate at -b{bf_shift} needs {need} bytes of "
-            f"device scratch, {free} free; adjudicate_first_occurrence (KI) "
-            "gives the same verdicts without it")
-    dense = torch.empty((1 << bf_shift,), dtype=torch.int32, device=dev)
+    _scratch, sb, *addrs = verdict_scratch(C, bf_shift, dev, "KF")
     fp = torch.empty((C,), dtype=torch.bool, device=dev)
     keep = torch.empty((C,), dtype=torch.bool, device=dev)
     kernels.KF.launch("kf_launch", C, ret.data_ptr(), arr.data_ptr(),
-                      n.data_ptr(), bf_shift, n_hashes, dense.data_ptr(),
+                      n.data_ptr(), bf_shift, sb, n_hashes, *addrs,
                       fp.data_ptr(), keep.data_ptr())
     return fp, keep
-
-
-def block_order(ret, arr, bf_shift: int):
-    """KI's input order: perm sorts the rows by (Bloom block, arrival),
-    stable; block j of the sorted rows is perm[starts[j]:starts[j + 1]]
-    (starts int64, its last entry the row count)."""
-    C = ret.shape[0]
-    block = ret & ((1 << (bf_shift - BLK_SHIFT)) - 1)
-    perm = torch.sort(arr, stable=True).indices
-    perm = perm[torch.sort(block[perm], stable=True).indices]
-    sb = block[perm]
-    del block
-    head = torch.ones((C,), dtype=torch.bool, device=ret.device)
-    head[1:] = sb[1:] != sb[:-1]
-    del sb
-    starts = torch.cat([torch.nonzero(head).flatten(),
-                        torch.full((1,), C, dtype=torch.int64,
-                                   device=ret.device)])
-    return perm, starts
 
 
 def adjudicate_first_occurrence(ret, arr, bf_shift: int, n_hashes: int):
@@ -435,10 +465,10 @@ def adjudicate_first_occurrence(ret, arr, bf_shift: int, n_hashes: int):
     fp[i], the first occurrence of row i found all its Bloom bits set by
     an earlier first arrival.  ret, arr int64 [C], arrivals below 2^63.
 
-    The rows are sorted by (Bloom block, arrival) with two stable
-    torch.sort passes, the block boundaries found with torch.nonzero, and
-    KI replays each block in arrival order over its 512 bits.  On the card
-    the sorts hold ~64 bytes a row; a card without them free raises."""
+    On the card KF's design on u64 arrivals: the rows grouped by Bloom
+    block (superblocks, then blocks in shared memory), no sort, each
+    block judged in shared memory, in verdict_bytes of scratch; a card
+    without them free raises."""
     C = ret.shape[0]
     dev = ret.device
     kernels.check(ret, "ret", torch.int64, (C,), dev)
@@ -446,17 +476,10 @@ def adjudicate_first_occurrence(ret, arr, bf_shift: int, n_hashes: int):
     check_n_hashes(n_hashes)
     if dev.type == "cpu":
         return adjudicate_first_occurrence_plain(ret, arr, bf_shift, n_hashes)
-    need = 64 * C
-    free = kernels.device_free_bytes(dev)
-    if need > free:
-        raise RuntimeError(
-            f"the first-occurrence verdict of {C} rows needs {need} device "
-            f"bytes, {free} free")
-    perm, starts = block_order(ret, arr, bf_shift)
+    _scratch, sb, *addrs = verdict_scratch(C, bf_shift, dev, "KI")
     fp = torch.empty((C,), dtype=torch.bool, device=dev)
-    kernels.KI.launch("ki_launch", starts.shape[0] - 1, starts.data_ptr(),
-                      perm.data_ptr(), ret.data_ptr(), arr.data_ptr(),
-                      bf_shift, n_hashes, fp.data_ptr())
+    kernels.KI.launch("ki_launch", C, ret.data_ptr(), arr.data_ptr(),
+                      bf_shift, sb, n_hashes, *addrs, fp.data_ptr())
     return fp
 
 
@@ -466,34 +489,36 @@ class Verdict(NamedTuple):
     by: str             # the kernel that gave fp: "KF" or "KI"
 
 
-def verdict_route(arr_max: int, bf_shift: int,
+def verdict_route(arr_max: int, rows: int, bf_shift: int,
                   free_bytes: Optional[int]) -> str:
     """The kernel that gives the verdicts, chosen before any launch: KF
-    while every first arrival is below 2^32 - 1 and its 4 * 2^bf_shift
-    bytes of scratch are free (free_bytes None: no limit, as for the plain
-    versions on the CPU), else KI, which gives the same verdicts with ~64
-    bytes a row (-b35 to -b37 on an 80 GB card)."""
-    if arr_max < ARRIVAL_LIMIT and (free_bytes is None
-                                    or 4 << bf_shift <= free_bytes):
-        return "KF"
-    return "KI"
+    while every first arrival is below 2^32 - 1, else KI.  Each needs
+    verdict_bytes(rows, bf_shift, kernel); where free_bytes (None: no
+    limit, as for the plain versions on the CPU) falls short, this
+    raises."""
+    by = "KF" if arr_max < ARRIVAL_LIMIT else "KI"
+    need = verdict_bytes(rows, bf_shift, by)
+    if free_bytes is not None and need > free_bytes:
+        raise RuntimeError(
+            f"the {by} verdict of {rows} rows at -b{bf_shift} needs {need} "
+            f"bytes of device scratch, {free_bytes} free")
+    return by
 
 
 def adjudicate(ret, arr, n, bf_shift: int, n_hashes: int) -> Verdict:
     """First-occurrence verdicts and the keep set n - 1 + fp >= 1, as both
     of bfc_tpu's device verdicts choose (counter.py:756-765, trimmer.py:
-    126-130): KF while every first arrival is below 2^32 - 1, KI above,
-    and KI too where KF's scratch is not free (verdict_route).
-    ret, arr, n int64 [C]."""
+    126-130): KF while every first arrival is below 2^32 - 1, KI above
+    (verdict_route).  ret, arr, n int64 [C]."""
     C = ret.shape[0]
     dev = ret.device
     kernels.check(n, "n", torch.int64, (C,), dev)
     arr_max = int(arr.max()) if C else 0
     free = None if dev.type == "cpu" else kernels.device_free_bytes(dev)
-    by = verdict_route(arr_max, bf_shift, free)
-    if free is not None:   # the route can turn on what else holds memory
-        log(f"verdict {by}: first arrivals up to {arr_max}; KF's scratch "
-            f"{4 << bf_shift} bytes, {free} free")
+    by = verdict_route(arr_max, C, bf_shift, free)
+    if free is not None:
+        log(f"verdict {by}: first arrivals up to {arr_max}; scratch "
+            f"{verdict_bytes(C, bf_shift, by)} bytes, {free} free")
     if by == "KF":
         fp, keep = adjudicate_sketch(
             ret, as_i32(arr), n.clamp(max=0x7FFFFFFF).to(torch.int32),

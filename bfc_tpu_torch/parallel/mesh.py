@@ -73,7 +73,7 @@ def sharded_adjudicate(run: sdn.Run, bf_shift: int, n_hashes: int):
     """First-occurrence verdicts of this rank's rows (bool [C]), judged on
     the ranks that own their Bloom blocks.  run carries ret (run_to_
     aggregate).  Every row of a block lands on one rank, in source rank
-    order; KI sorts what it receives by (block, arrival) itself."""
+    order; KI groups what it receives by block itself, in any order."""
     routed = route.route_rows([run.ret, run.arr], comm.size(), route.BLOOM,
                               bf_shift, ret=run.ret)
     (r_ret, r_arr), recv_counts = comm.all_to_all_rows(routed.cols,

@@ -1,8 +1,10 @@
-"""A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island)
-and KD (ec1_search) of one tree of bfc_tpu_torch on one CUDA card.
+"""A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
+KD (ec1_search), KF (bloom_adjudicate) and KI (first_occurrence) of one
+tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
+    python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
 an older tree unpacked with `git archive` into a directory that
@@ -27,8 +29,29 @@ those alone; KB on the 2,097,152-row counting batch (median of 11);
 and the correction pass over all reads with the tree's default batch
 (wall, device step, batches, peak device memory above what the spectrum
 holds, scalar fallbacks and the output's sha256); --correct-batch sets
-that pass's batch instead.  Without a CUDA device
-it exits non-zero.
+that pass's batch instead.  Then the verdicts: the counting peaks
+of the device finalize on the main path (-b30) and on the trim path
+(`-1 -k51`, -b33), and KF (arrivals from 0) and KI (from 0 and from
+2^33) on the main path's fold (-b30) and the trim path's fold (-b33),
+each as the mean of 5 wrapper calls (host cost included), as a kernel
+(the median replay of a CUDA graph of 5 launches of the tree's launcher
+on inputs and scratch made beforehand, host cost excluded; "scope" says
+what that launcher does; "breakdown_ms" its kernels' device ms from a
+torch.profiler trace), with the sha256 of fp (and KF's keep) and the
+device bytes a wrapper call allocates above what was held.
+
+--verdict-variants measures designs of the KF/KI verdict instead: it
+builds the verdict's two libraries as they stand and once for each of
+VARIANTS (a copy of csrc/ with verdict.cuh edited) into
+build/verdict_variants/, then on synthetic folds the size of the
+3M-read runs' (63,109,113 rows at -b33 in random row order, as the trim
+fold's; 49,804,406 at -b30 in random order and sorted by Bloom block, as
+the main fold's rows lie) times each launcher (CUDA events, the mean of
+3 launches; n_hashes 4, arrivals a permutation of the rows), breaks it
+into kernels with torch.profiler and checks that every variant's fp
+equals the first one's; "base_S<k>" runs with superblocks of 2^k blocks
+in place of spectrum.verdict_shift's.  One JSON line a run.  Without a
+CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -48,6 +71,33 @@ KD_READS = (8192, 65536, 131072)
 TAIL_READS = 64
 CALL_REPS = 20   # KA's and KC's wrapper calls a mean (chip_smoke.py's)
 GRAPH_REPS = 50  # calls in a timed CUDA graph (chip_probe.py's REPS)
+VERDICT_REPS = 5  # KF's and KI's calls a mean, and launches a graph
+FAR = 1 << 33     # arrivals from here take KI
+# the verdict's variants: name: [(text in verdict.cuh, its replacement)];
+# "noagg" counts and takes slots with one atomic a row, not one a
+# superblock a warp
+VARIANTS = {
+    "base": [],
+    "pair4": [("#define VD_PAIR 8 ", "#define VD_PAIR 4 ")],
+    "pair16": [("#define VD_PAIR 8 ", "#define VD_PAIR 16 ")],
+    "g8": [("#define VD_GROUP 32 ", "#define VD_GROUP 8 ")],
+    "noagg": [
+        ("    unsigned peers = vd_peers(q, &rank);\n"
+         "    if (i < C && rank == 0) atomicAdd(cnt + q, "
+         "(uint32_t)__popc(peers));",
+         "    if (i < C) atomicAdd(cnt + q, 1u);"),
+        ("    unsigned peers = vd_peers(q, &rank);\n"
+         "    uint32_t end = 0;\n"
+         "    if (i < C && rank == 0) end = atomicSub(ends + q, "
+         "(uint32_t)__popc(peers));\n"
+         "    end = __shfl_sync(0xFFFFFFFFu, end, __ffs(peers) - 1);",
+         "    uint32_t end = i < C ? atomicSub(ends + q, 1u) : 0u;\n"
+         "    rank = 0;")],
+}
+VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
+                 ("b30", 49_804_406, 30, "random"),
+                 ("b30", 49_804_406, 30, "sorted"))
+VARIANT_SHIFTS = {33: (6, 7), 30: (4, 6)}
 
 
 def _load_smoke():
@@ -66,6 +116,207 @@ def _sha(*tensors) -> str:
     return h.hexdigest()
 
 
+def _peak(torch, fn):
+    """(fn(), device bytes it allocated above what was held)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _breakdown(torch, fn, reps: int) -> dict:
+    """Device ms a call of each kernel (and memset) that fn launches, from
+    a torch.profiler trace of reps calls; {} where it holds no device
+    time, {"error": ...} where the profiler fails on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"error": str(e)[:200]}
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", 0)
+              or getattr(e, "cuda_time_total", 0))
+        if us:
+            out[e.key.split("(")[0].replace("void ", "")] = us / 1e3 / reps
+    return out
+
+
+def verdicts(torch, smoke, kernels, spec, sdn, run, b: int, H: int):
+    """KF and KI of this tree on one fold (run, with ret) at -b: wrapper
+    call ms, kernel ms, sha256, a call's peak bytes.  The kernel is the
+    tree's launcher alone: this design's does the whole verdict; the
+    first KF's too (its scratch cleared and two passes), the first KI's
+    only the block replay, after the wrapper's sorts and nonzero."""
+    ret, C, dev = run.ret, len(run), run.ret.device
+    a32 = sdn.as_i32(run.arr)
+    n32 = run.n.clamp(max=0x7FFFFFFF).to(torch.int32)
+    fp = torch.empty((C,), dtype=torch.bool, device=dev)
+    keep = torch.empty((C,), dtype=torch.bool, device=dev)
+    new = hasattr(spec, "verdict_bytes")
+    out = {"rows": C, "bf_shift": b}
+    for name, shift in (("kf", 0), ("ki", 0), ("ki", FAR)):
+        arr = run.arr + shift
+        if name == "kf":
+            call = lambda: spec.adjudicate_sketch(ret, a32, n32, b, H)
+        else:
+            call = lambda: (spec.adjudicate_first_occurrence(ret, arr, b, H),)
+        got, peak = _peak(torch, call)
+        r = {"sha256": _sha(*got), "peak_bytes": peak,
+             "fp": int(got[0].sum()),
+             "ms": smoke.cuda_ms(call, VERDICT_REPS)}
+        del got
+        if new:
+            scratch, sb, *addrs = spec.verdict_scratch(C, b, dev,
+                                                        name.upper())
+            if name == "kf":
+                args = ("kf_launch", C, ret.data_ptr(), a32.data_ptr(),
+                        n32.data_ptr(), b, sb, H, *addrs, fp.data_ptr(),
+                        keep.data_ptr())
+            else:
+                args = ("ki_launch", C, ret.data_ptr(), arr.data_ptr(), b, sb,
+                        H, *addrs, fp.data_ptr())
+            r["superblock_shift"] = sb
+            r["scope"] = "the whole verdict"
+        elif name == "kf":
+            scratch = torch.empty((1 << b,), dtype=torch.int32, device=dev)
+            args = ("kf_launch", C, ret.data_ptr(), a32.data_ptr(),
+                    n32.data_ptr(), b, H, scratch.data_ptr(), fp.data_ptr(),
+                    keep.data_ptr())
+            r["scope"] = "the whole verdict (scratch cleared, two passes)"
+        else:
+            perm, starts = spec.block_order(ret, arr, b)
+            scratch = (perm, starts)
+            args = ("ki_launch", starts.shape[0] - 1, starts.data_ptr(),
+                    perm.data_ptr(), ret.data_ptr(), arr.data_ptr(), b, H,
+                    fp.data_ptr())
+            r["scope"] = ("the block replay only, without the wrapper's two "
+                          "torch.sort passes, gathers and nonzero")
+        kern = kernels.KF if name == "kf" else kernels.KI
+        r["kernel_ms"] = smoke.graph_ms([lambda: kern.launch(*args)],
+                                        VERDICT_REPS)
+        r["breakdown_ms"] = _breakdown(torch, lambda: kern.launch(*args),
+                                       VERDICT_REPS)
+        del scratch
+        torch.cuda.empty_cache()
+        out[name if shift == 0 else f"{name}_from_2^33"] = r
+    return out
+
+
+def build_variants(kernels) -> dict:
+    """{(variant, library): its launcher}; nvcc runs in parallel."""
+    import ctypes
+    import subprocess
+
+    csrc = HERE / "bfc_tpu_torch" / "csrc"
+    out = HERE / "build" / "verdict_variants"
+    procs = {}
+    for name, subs in VARIANTS.items():
+        d = out / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        text = (d / "verdict.cuh").read_text()
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} not found")
+            text = text.replace(old, new)
+        (d / "verdict.cuh").write_text(text)
+        for lib in ("bloom_adjudicate", "first_occurrence"):
+            # -fno-gnu-unique: each library keeps its own launcher statics
+            cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xcompiler",
+                   "-fno-gnu-unique", "-I", str(d), "-o",
+                   str(d / f"lib{lib}.so"), str(d / f"{lib}.cu")]
+            procs[name, lib] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    fns = {}
+    for (name, lib), p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"nvcc failed for {name}/{lib}:\n{log}")
+        kern = kernels.KF if lib == "bloom_adjudicate" else kernels.KI
+        (entry, argtypes), = kern.signatures.items()
+        fn = getattr(ctypes.CDLL(str(out / name / f"lib{lib}.so")), entry)
+        fn.argtypes = argtypes
+        fns[name, lib] = fn
+    return fns
+
+
+def verdict_variants(torch, kernels, spec, seed: int) -> int:
+    """--verdict-variants: every variant's launcher on the synthetic
+    folds, one JSON line a run."""
+    fns = build_variants(kernels)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = torch.cuda.current_stream().cuda_stream
+    card = _load_smoke().card_line()
+    for tag, C, b, order in VARIANT_FOLDS:
+        ret = torch.randint(-(1 << 62), 1 << 62, (C,), device=dev,
+                            generator=gen, dtype=torch.int64)
+        if order == "sorted":
+            ret = ret[torch.argsort(ret & ((1 << (b - spec.BLK_SHIFT)) - 1))]
+        arr = torch.randperm(C, device=dev, generator=gen)
+        a32 = arr.to(torch.int32)
+        n32 = torch.randint(0, 3, (C,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        runs = [(name, lib, None) for name, lib in fns
+                if lib == "bloom_adjudicate" or name == "base"]
+        runs += [(f"base_S{k}", "bloom_adjudicate", k)
+                 for k in VARIANT_SHIFTS[b]]
+        first = None
+        for name, lib, sb in runs:
+            kernel = "KF" if lib == "bloom_adjudicate" else "KI"
+            fn = fns[name.split("_S")[0], lib]
+            sb = spec.verdict_shift(C, b) if sb is None else sb
+            # verdict_scratch's layout at any shift
+            ns = 1 << (b - spec.BLK_SHIFT - sb)
+            rb, tiles = spec.RECORD_BYTES[kernel], -(-ns // spec.SCAN_TILE)
+            buf = torch.empty(((rb + 5) * C + 4 * (ns + tiles),),
+                              dtype=torch.uint8, device=dev)
+            base = buf.data_ptr()
+            cnt = base + (rb + 4) * C
+            addrs = (base, base + rb * C, cnt + 4 * (ns + tiles), cnt,
+                     cnt + 4 * ns)
+            fp = torch.empty((C,), dtype=torch.bool, device=dev)
+            keep = torch.empty((C,), dtype=torch.bool, device=dev)
+            if kernel == "KF":
+                call = lambda: fn(C, ret.data_ptr(), a32.data_ptr(),
+                                  n32.data_ptr(), b, sb, 4, *addrs,
+                                  fp.data_ptr(), keep.data_ptr(), st)
+            else:
+                call = lambda: fn(C, ret.data_ptr(), arr.data_ptr(), b, sb, 4,
+                                  *addrs, fp.data_ptr(), st)
+            if call() != 0:
+                raise SystemExit(f"{name}/{lib} failed to launch")
+            torch.cuda.synchronize()
+            if first is None:
+                first = fp.clone()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(3):
+                call()
+            ev[1].record()
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "card": card, "fold": tag, "rows": C, "bf_shift": b,
+                "order": order, "variant": name, "kernel": kernel,
+                "superblock_shift": sb,
+                "ms": ev[0].elapsed_time(ev[1]) / 3,
+                "fp_equal": bool(torch.equal(fp, first)),
+                "breakdown_ms": _breakdown(torch, call, 3)}), flush=True)
+            del buf
+        del ret, arr, a32, n32, first
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(HERE),
@@ -75,6 +326,8 @@ def main() -> int:
     ap.add_argument("--correct-batch", type=int, default=None,
                     help="reads a batch of the correction pass [the tree's "
                     "default]")
+    ap.add_argument("--verdict-variants", action="store_true",
+                    help="time the KF/KI verdict's design variants instead")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -83,14 +336,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
+    if args.verdict_variants:
+        from bfc_tpu_torch import kernels
+        from bfc_tpu_torch.ops import spectrum as spec
+        return verdict_variants(torch, kernels, spec, args.seed)
     from bfc_tpu_torch import cli, kernels
     from bfc_tpu_torch.io import fast_reader as FR
     from bfc_tpu_torch.io.writer import OutputWriter
     from bfc_tpu_torch.models import counter as C
     from bfc_tpu_torch.models import device_pipeline as DP
+    from bfc_tpu_torch.models import trimmer as TT
     from bfc_tpu_torch.ops import annotate as ann
     from bfc_tpu_torch.ops import kmer as kops
     from bfc_tpu_torch.ops import search as srch
+    from bfc_tpu_torch.ops import spectrum as spec
     from bfc_tpu_torch.ops import spectrum_dense as sdn
     from bfc_tpu_torch.opts import Opts
 
@@ -106,9 +365,9 @@ def main() -> int:
         opt = Opts()
         opt.apply_genome_size(cli.parse_size("5m"))
         t0 = time.time()
-        ds = C.count_file_device(str(fq), opt, dev, batch_reads=smoke.COUNT_B,
-                                 device_finalize=True)
-        torch.cuda.synchronize()
+        ds, rec["count_peak_bytes"] = _peak(torch, lambda: C.count_file_device(
+            str(fq), opt, dev, batch_reads=smoke.COUNT_B,
+            device_finalize=True))
         rec["count_s"] = time.time() - t0
 
         # KB on one counting batch's sorted rows
@@ -207,6 +466,33 @@ def main() -> int:
                 torch.cuda.max_memory_allocated() - base,
             "allocated_before_bytes": base, "n_fallback": corr.n_fallback,
             "sha256": h}
+        del ds, t
+        torch.cuda.empty_cache()
+
+        # the verdicts: the trim count's peak and fold, the main fold
+        topt = Opts()
+        topt.k = smoke.TRIM_K
+        topt.filter_mode = True
+        info = {}
+        _, rec["trim_count_peak_bytes"] = _peak(
+            torch, lambda: TT.count_file_filter_device(
+                str(fq), topt, dev, smoke.COUNT_B, info=info,
+                device_finalize=True))
+        rec["trim_verdict"] = info["verdict"]
+        trim_fold = sdn.run_to_aggregate(info.pop("aggregate"), topt.k,
+                                         topt.effective_l_pre())
+        del info
+        agg = C.AggBuilder(opt, dev)
+        for cbases, cqok, clens, _ in C.padded_batches(str(fq), opt,
+                                                       smoke.COUNT_B):
+            agg.add(cbases, cqok, clens)
+        main_fold = sdn.run_to_aggregate(agg.fold(), k, l_pre)
+        del agg
+        torch.cuda.empty_cache()
+        rec["verdicts"] = {
+            f"b{o.bf_shift}": verdicts(torch, smoke, kernels, spec, sdn, run,
+                                       o.bf_shift, o.n_hashes)
+            for o, run in ((opt, main_fold), (topt, trim_fold))}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(rec), flush=True)

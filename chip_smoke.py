@@ -58,8 +58,9 @@ Phases (any failure raises; nothing is caught):
    the aggregate's kept rows; KH on an 8,192-read trim batch.  Then the
    card's -1 -k51 count of the first 80,000 reads must give the plain
    CPU run's aggregate, keep set and Bloom bits; and `-1 -k51 -b35` on
-   those reads, where KF's 128 GiB of scratch is not free, must take the
-   verdict from KI (KF silent) and hash equal to the --cpu run.
+   those reads twice: from arrival 0 it must take the verdict from KF
+   (KI silent), from 2^33 from KI (KF silent), and both outputs must
+   hash equal to the --cpu run.
 7. The main path with the device finalize (device_finalize=True, as
    BFC_TPU_DEVICE_FINALIZE=1 selects it) on the same reads, counts zeroed
    just before and read just after: KA, KB, KJ, KF, KK, KL, KC and KD must
@@ -73,12 +74,13 @@ Phases (any failure raises; nothing is caught):
    launch and KF not, and the output must hash as phase 5's; and the main
    path's count with arrivals from 2^33 and the device finalize, where KI
    must launch and the spectrum equal phase 2's.
-9. The finalize kernels against their plain versions and the host: KI on
-   the main fold (49.8M rows, -b30) and the trim fold (63.1M rows, -b33)
-   against KF's verdicts, with arrivals from 0 and from 2^33, against its
-   plain version on the trim fold and against the host's exact replay
-   there; KJ and KK on the main fold; KL on the main fold's kept entries,
-   compared by lookups with its plain version's table.
+9. The finalize kernels against their plain versions and the host: KF
+   (arrivals from 0) and KI (from 0 and from 2^33) on the main fold
+   (49.8M rows, -b30), the trim fold (63.1M rows, -b33) and the main fold
+   at -b24, where a Bloom block holds over 1,000 rows, each against its
+   plain version and the host's exact replay; KJ and KK on the main fold;
+   KL on the main fold's kept entries, compared by lookups with its plain
+   version's table.
 10. The main path over the mesh, as `python -m bfc_tpu_torch --mesh R -s 5m
    reads.fq` runs it, through the launcher (parallel/multihost.py) on the
    same reads: (a) R = torch.cuda.device_count() ranks over NCCL (one rank
@@ -201,7 +203,8 @@ TRIM_K = 51                     # README's trim command: -1 -k51 (-b33)
 TRIM_B, TRIM_L = 8192, 128      # Trimmer.trim_file's batch (L padded to 32)
 ABSENT_KEYS = 1_000_000         # seeded keys probed in both tables
 FAR = 1 << 33                   # arrivals from here take the KI verdict
-WIDE_B = 35                     # -b35: KF's scratch (128 GiB) is not free
+WIDE_B = 35                     # -b35: KF from arrival 0, KI from 2^33
+HOT_B = 24                      # the main fold at -b24: ~1,500 rows a block
 
 
 def fail(msg: str):
@@ -295,6 +298,23 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def call_peak(fn) -> int:
+    """Device bytes that one call of fn allocates above what was held."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def verdict_bound(rows: int, kernel: str):
+    """KF's and KI's bound: each row's inputs read once and its outputs
+    written once (KF ret 8, arr 4, n 4, fp 1, keep 1 = 18 bytes; KI ret
+    8, arr 8, fp 1 = 17), and one row's Bloom addressing."""
+    return bound(rows * (18 if kernel == "KF" else 17), rows * OPS_BLOOM)
 
 
 def count_batch(bases, quals, opt, dev):
@@ -773,6 +793,8 @@ def check_trim_kernels(agg, keep_path, bloom, opt, bases, dev):
     r = {"replay_mismatches": n_replay, "fp": int(fp.sum()),
          "kept": int(keep.sum()), "rows": rows}
     r["ms"] = cuda_ms(lambda: spec.adjudicate_sketch(ret, arr, n, b, H), 3)
+    r["peak_bytes"] = call_peak(lambda: spec.adjudicate_sketch(ret, arr, n,
+                                                               b, H))
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -782,8 +804,7 @@ def check_trim_kernels(agg, keep_path, bloom, opt, bases, dev):
     r.update(zip(("max_abs_err", "mismatches"), compare((fp, keep), want)))
     del want
     torch.cuda.empty_cache()
-    r["bound"] = bound((4 << b) + rows * (8 + 4 + 4 + 2) + 2 * rows * BLOCK,
-                       2 * rows * OPS_BLOOM)
+    r["bound"] = verdict_bound(rows, "KF")
     res["bloom_adjudicate"] = r
 
     words = TT.bloom_build(ret, keep, b, H)
@@ -836,28 +857,41 @@ def check_trim_head(fq: Path, opt, dev):
 
 
 def check_trim_wide(fq: Path, tmp: Path):
-    """`-1 -k51 -b35` on fq, on the card and on the CPU: KF's 4 * 2^35
-    bytes of scratch are not free on the card, so the verdict must be
-    KI's with KF silent, and the outputs must hash equal.  Returns (the
-    card's report, launches)."""
+    """`-1 -k51 -b35` on fq, on the card from arrival 0 (the verdict must
+    be KF's, KI silent) and from 2^33 (KI's, KF silent), and on the CPU:
+    both card outputs must hash as the CPU's.  Returns {verdict: (the
+    card's report without its device tensors, launches)}: the -b35 Bloom
+    filter alone is 4 GiB, which later phases' peaks would count."""
     o = Opts()
     o.k = TRIM_K
     o.filter_mode = True
     o.bf_shift = WIDE_B
-    out, cpu_out = tmp / "trimmed_b35.fq", tmp / "trimmed_b35_cpu.fq"
-    rep, launches, _ = drive(o, fq, out)
-    if rep["verdict"] != "KI":
-        fail(f"-1 -b{WIDE_B} took the {rep['verdict']} verdict, not KI")
-    need_launched(launches, ("first_occurrence", "bloom_build",
-                             "max_streak"), f"-1 -b{WIDE_B}")
-    need_silent(launches, ("bloom_adjudicate",), f"-1 -b{WIDE_B}")
+    cpu_out = tmp / "trimmed_b35_cpu.fq"
     with open(cpu_out, "wb") as sink:
         DP.run_device(o, str(fq), sink=sink, device="cpu")
-    if file_hash(out) != file_hash(cpu_out):
-        fail(f"-1 -b{WIDE_B}: the card's output differs from the CPU's")
-    out.unlink()
+    want = file_hash(cpu_out)
     cpu_out.unlink()
-    return rep, launches
+    runs = {}
+    for base, by, other in ((0, "KF", "first_occurrence"),
+                            (FAR, "KI", "bloom_adjudicate")):
+        out = tmp / "trimmed_b35.fq"
+        with arrivals_from(base):
+            rep, launches, _ = drive(o, fq, out)
+        path = f"-1 -b{WIDE_B} from arrival {base}"
+        if rep["verdict"] != by:
+            fail(f"{path} took the {rep['verdict']} verdict, not {by}")
+        need_launched(launches, ("bloom_build", "max_streak",
+                                 "bloom_adjudicate" if by == "KF"
+                                 else "first_occurrence"), path)
+        need_silent(launches, (other,), path)
+        if file_hash(out) != want:
+            fail(f"{path}: the card's output differs from the CPU's")
+        out.unlink()
+        runs[by] = {k: v for k, v in rep.items()
+                    if k not in ("bloom", "aggregate", "keep")}, launches
+        del rep
+        torch.cuda.empty_cache()
+    return runs
 
 
 def same_spectrum(got, want) -> bool:
@@ -901,9 +935,67 @@ def check_device_table(dds, hds, dev, seed):
     return len(shard), int((want == -1).sum())
 
 
-def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
-    """KI, KJ, KK and KL against their plain versions (and KI against KF
-    and the host replay) at the folds' shapes.  Returns {name: result}."""
+def check_verdicts(ret, arr, n, b: int, H: int):
+    """KF (arrivals from 0) and KI (from 0 and from 2^33) on one fold at
+    -b, each against its plain version and the host's exact replay, timed
+    (3 calls) with the plain version (one call) and a call's peak bytes.
+    ret, arr, n int64 [C] on the card.  Returns {"KF": {...}, "KI": {...},
+    "block_rows": the most rows of one Bloom block}."""
+    rows = ret.shape[0]
+    replay = sph.adjudicate_replay_np(
+        ret.cpu().numpy().view(np.uint64), arr.cpu().numpy().view(np.uint64),
+        np.ones(rows, bool), b, H)
+    if replay is None:
+        fail("the native replay library did not load")
+    out = {"block_rows": int(torch.bincount(
+        ret & ((1 << (b - spec.BLK_SHIFT)) - 1)).max())}
+    n32 = n.clamp(max=0x7FFFFFFF).to(torch.int32)
+
+    def kf(a32):
+        return spec.adjudicate_sketch(ret, a32, n32, b, H)
+
+    def kf_plain(a32):
+        return spec.adjudicate_sketch_plain(ret, a32, n32, b, H)
+
+    def ki(a):
+        return (spec.adjudicate_first_occurrence(ret, a, b, H),)
+
+    def ki_plain(a):
+        return (spec.adjudicate_first_occurrence_plain(ret, a, b, H),)
+
+    for name, shift, fn, plain in (("KF", 0, kf, kf_plain),
+                                   ("KI", 0, ki, ki_plain),
+                                   ("KI", FAR, ki, ki_plain)):
+        a = sdn.as_i32(arr) if name == "KF" else arr + shift
+        got = fn(a)
+        r = out.setdefault(name, {"mismatches": 0, "max_abs_err": 0.0,
+                                  "replay_mismatches": 0})
+        n_replay = int((got[0].cpu().numpy() != replay).sum())
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = plain(a)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err, n_diff = compare(got, want)
+        del want
+        r["replay_mismatches"] += n_replay
+        r["mismatches"] += n_diff + n_replay
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if shift == 0:
+            r["fp"] = int(got[0].sum())
+            r["plain_ms"] = plain_ms
+            r["ms"] = cuda_ms(lambda: fn(a), 3)
+            r["peak_bytes"] = call_peak(lambda: fn(a))
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev, kf):
+    """KF and KI against their plain versions and the host replay on the
+    folds (check_verdicts; KF's results join phase 6's, kf), then KJ,
+    KK and KL against their plain versions at the folds' shapes.  Returns
+    {name: result}."""
     k, l_pre = opt.k, opt.effective_l_pre()
     H = opt.n_hashes
     res = {}
@@ -920,52 +1012,33 @@ def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev):
     r["rows"] = rows
     res["derive_ret"] = r
 
-    # KI on both folds against KF, from 0 and from 2^33
-    ki = {"mismatches": 0, "max_abs_err": 0.0}
-    for fold, o, r_fold in ((main_fold, opt, ret), (trim_fold, topt, None)):
-        b = o.bf_shift
-        ret_f = fold.ret if r_fold is None else r_fold
-        n32 = fold.n.clamp(max=0x7FFFFFFF).to(torch.int32)
-        kf, _ = spec.adjudicate_sketch(ret_f, sdn.as_i32(fold.arr), n32, b, H)
+    # KF and KI on the main fold, the trim fold and the hot-block fold
+    ki = {"mismatches": 0, "max_abs_err": 0.0, "replay_mismatches": 0}
+    for tag, fold, fret, b in (("b30", main_fold, ret, opt.bf_shift),
+                               ("b33", trim_fold, trim_fold.ret,
+                                topt.bf_shift),
+                               ("hot", main_fold, ret, HOT_B)):
+        v = check_verdicts(fret, fold.arr, fold.n, b, H)
+        for r, name in ((kf, "KF"), (ki, "KI")):
+            r["mismatches"] += v[name]["mismatches"]
+            r["replay_mismatches"] += v[name]["replay_mismatches"]
+            r["max_abs_err"] = max(r["max_abs_err"], v[name]["max_abs_err"])
+            r[f"ms_{tag}"] = v[name]["ms"]
+            r[f"rows_{tag}"] = len(fold)
+            if tag == "b33":
+                r["plain_ms_b33"] = v[name]["plain_ms"]
+        ki[f"fp_{tag}"] = v["KI"]["fp"]
+        if tag == "hot":
+            kf["hot_block_rows"] = ki["hot_block_rows"] = v["block_rows"]
+        else:
+            kf[f"bound_ms_{tag}"] = verdict_bound(len(fold), "KF")[0]
+            ki[f"bound_ms_{tag}"] = verdict_bound(len(fold), "KI")[0]
+            ki[f"peak_bytes_{tag}"] = v["KI"]["peak_bytes"]
+            kf[f"peak_bytes_{tag}"] = v["KF"]["peak_bytes"]
         torch.cuda.empty_cache()
-        for shift in (0, FAR):
-            got = spec.adjudicate_first_occurrence(ret_f, fold.arr + shift, b,
-                                                   H)
-            err, n_diff = compare((got,), (kf,))
-            ki["mismatches"] += n_diff
-            ki["max_abs_err"] = max(ki["max_abs_err"], err)
-        ki[f"fp_b{b}"] = int(kf.sum())
-        ki[f"ms_b{b}"] = cuda_ms(lambda: spec.adjudicate_first_occurrence(
-            ret_f, fold.arr, b, H), 3)
-        ki[f"rows_b{b}"] = len(fold)
-        del kf, got
-    # the trim fold: KI's plain version and the host's exact replay
-    b = topt.bf_shift
-    tr, ta = trim_fold.ret, trim_fold.arr
-    got = spec.adjudicate_first_occurrence(tr, ta, b, H)
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    want = spec.adjudicate_first_occurrence_plain(tr, ta, b, H)
-    torch.cuda.synchronize()
-    ki["plain_ms"] = (time.time() - t0) * 1e3
-    err, n_diff = compare((got,), (want,))
-    ki["mismatches"] += n_diff
-    ki["max_abs_err"] = max(ki["max_abs_err"], err)
-    del want
-    torch.cuda.empty_cache()
-    replay = sph.adjudicate_replay_np(
-        tr.cpu().numpy().view(np.uint64), ta.cpu().numpy().view(np.uint64),
-        np.ones(len(trim_fold), bool), b, H)
-    if replay is None:
-        fail("the native replay library did not load")
-    ki["replay_mismatches"] = int((got.cpu().numpy() != replay).sum())
-    ki["mismatches"] += ki["replay_mismatches"]
-    trows = len(trim_fold)
-    ki["ms"] = ki[f"ms_b{b}"]
-    ki["bound"] = bound(trows * (8 + 8 + 1), trows * OPS_BLOOM)
+    ki["ms"], ki["plain_ms"] = ki["ms_b33"], ki["plain_ms_b33"]
+    ki["bound"] = verdict_bound(len(trim_fold), "KI")
     res["first_occurrence"] = ki
-    del got
 
     # KK on the main fold with KI's verdicts
     fp = spec.adjudicate_first_occurrence(ret, main_fold.arr, opt.bf_shift, H)
@@ -1483,11 +1556,14 @@ def main() -> int:
               f"k-mers aggregated, {n_kept} kept, {n_bits} Bloom bits set); "
               f"{time.time() - t0:.1f} s", flush=True)
         t0 = time.time()
-        wrep, wlaunches = check_trim_wide(head, tmp)
-        print(f"trim -b{WIDE_B} on the first {HEAD_READS} reads: verdict "
-              f"{wrep['verdict']} (KF's {4 << WIDE_B} bytes of scratch not "
-              f"free), output byte-identical to the --cpu run; "
-              f"{wrep['reads_kept']} reads kept; launches {wlaunches}; "
+        wide = check_trim_wide(head, tmp)
+        (wrep, wlaunches), (_, wflaunches) = wide["KF"], wide["KI"]
+        need = spec.verdict_bytes(wrep["n_aggregated"], WIDE_B, "KF")
+        print(f"trim -b{WIDE_B} on the first {HEAD_READS} reads: verdict KF "
+              f"from arrival 0 (scratch {need} bytes), KI from 2^33; both "
+              f"outputs byte-identical to the "
+              f"--cpu run; {wrep['reads_kept']} reads kept; launches "
+              f"{wlaunches}, from 2^33 {wflaunches}; "
               f"{time.time() - t0:.1f} s", flush=True)
 
         # ---- the main path with the device finalize
@@ -1499,7 +1575,9 @@ def main() -> int:
               f"{n_reads / (cs + es):.0f} reads/s; {drep['n_aggregated']} "
               f"distinct k-mers aggregated, {drep['n_kept']} kept, c_bits "
               f"{drep['spectrum'].c_bits}; device memory peak "
-              f"{dpeak / 2**30:.2f} GiB; launches {dlaunches}", flush=True)
+              f"{dpeak / 2**30:.2f} GiB (counting "
+              f"{drep['count_peak_bytes'] / 2**30:.2f}); launches "
+              f"{dlaunches}", flush=True)
         need_launched(dlaunches, MAIN_DEVICE_KERNELS,
                       "the main path with the device finalize")
         need_silent(dlaunches, ("pack_pull", "first_occurrence"),
@@ -1528,7 +1606,8 @@ def main() -> int:
         print(f"trim path, device finalize (verdict {dtrep['verdict']}): "
               f"counting {dtrep['count_s']:.2f} s, trim "
               f"{dtrep['trim_s']:.2f} s; {dtrep['n_kept']} k-mers kept; "
-              f"device memory peak {dtpeak / 2**30:.2f} GiB; launches "
+              f"device memory peak (counting and trim) "
+              f"{dtpeak / 2**30:.2f} GiB; launches "
               f"{dtlaunches}", flush=True)
         need_launched(dtlaunches, TRIM_DEVICE_KERNELS,
                       "the trim path with the device finalize")
@@ -1579,13 +1658,23 @@ def main() -> int:
         # ---- the finalize kernels against their plain versions
         t0 = time.time()
         res.update(check_finalize_kernels(main_fold, trim_fold, opt, topt,
-                                          dev))
-        r = res["first_occurrence"]
-        print(f"KI verdicts: equal to KF's on the {r['rows_b30']}-row main "
-              f"fold ({r['fp_b30']} Bloom hits) and the {r['rows_b33']}-row "
-              f"trim fold ({r['fp_b33']}), arrivals from 0 and from 2^33; "
-              f"equal to its plain version and the host replay on the trim "
-              f"fold; {time.time() - t0:.1f} s", flush=True)
+                                          dev, res["bloom_adjudicate"]))
+        r, f = res["first_occurrence"], res["bloom_adjudicate"]
+        print(f"KF (arrivals from 0) and KI (from 0 and from 2^33) verdicts: "
+              f"equal to their plain versions and the host replay on the "
+              f"{r['rows_b30']}-row main fold at -b{opt.bf_shift} "
+              f"({r['fp_b30']} Bloom hits), the {r['rows_b33']}-row trim "
+              f"fold at -b{topt.bf_shift} ({r['fp_b33']}) and the main fold "
+              f"at -b{HOT_B} (up to {r['hot_block_rows']} rows a block, "
+              f"{r['fp_hot']} hits); KF {f['ms_b30']:.3f} / "
+              f"{f['ms_b33']:.3f} / {f['ms_hot']:.3f} ms, KI "
+              f"{r['ms_b30']:.3f} / {r['ms_b33']:.3f} / {r['ms_hot']:.3f} "
+              f"ms (bounds KF {f['bound_ms_b30']:.4f} / "
+              f"{f['bound_ms_b33']:.4f}, KI {r['bound_ms_b30']:.4f} / "
+              f"{r['bound_ms_b33']:.4f}); a call's peak KF "
+              f"{f['peak_bytes_b30']} / {f['peak_bytes_b33']} bytes, KI "
+              f"{r['peak_bytes_b30']} / {r['peak_bytes_b33']}; "
+              f"{time.time() - t0:.1f} s", flush=True)
         del trim_fold
         torch.cuda.empty_cache()
 
@@ -1766,6 +1855,9 @@ def main() -> int:
                       "correction_peak_bytes", "overflow", "top_merge",
                       "plain_reads", "rows", "pull_s", "replay_mismatches",
                       "c_bits", "ms_b30", "ms_b33", "rows_b30", "rows_b33",
+                      "ms_hot", "rows_hot", "hot_block_rows", "bound_ms_b30",
+                      "bound_ms_b33", "peak_bytes", "peak_bytes_b30",
+                      "peak_bytes_b33", "plain_ms_b33",
                       "rows_sent", "ms_fold", "plain_ms_fold",
                       "bound_ms_fold", "rows_fold", "cb_local", "keys",
                       "rows_by_R", "cb_local_by_R", "kernel_ms",

@@ -3,7 +3,8 @@ card (KA and KC also on rows of 600 slots and on a batch that is not a
 multiple of a block's warps; KB at its tile
 edges, KD with reads deferred to its second pass), the trim path and
 the device finalize on the card against the same
-paths on the CPU (also at -b35, where the verdict is KI's), and the mesh
+paths on the CPU (also at -b35, KF's from arrival 0 and KI's from 2^33),
+KF and KI on a fold whose hot blocks hold over 1,000 rows, and the mesh
 path (one NCCL rank, two gloo ranks sharing the card), with the table
 replicated and sharded, against the single-device run.
 
@@ -231,6 +232,13 @@ def test_ke_kf_kg_kh_match_plain(card, tmp_path, k):
     fp, keep = spec.adjudicate_sketch(ret, arr, n, opt.bf_shift, opt.n_hashes)
     _eq((fp, keep), spec.adjudicate_sketch_plain(ret, arr, n, opt.bf_shift,
                                                  opt.n_hashes))
+    # -b12: blocks of over 1,000 rows; arrivals past the int32 sign
+    hot = torch.bincount(ret & ((1 << 3) - 1)).max()
+    assert int(hot) >= 1000
+    far = torch.from_numpy(ha.first_arr.astype(np.int64)) + (3 << 30)
+    for a in (arr, sdn.as_i32(far).to(card)):
+        _eq(spec.adjudicate_sketch(ret, a, n, 12, opt.n_hashes),
+            spec.adjudicate_sketch_plain(ret, a, n, 12, opt.n_hashes))
     words = TT.bloom_build(ret, keep, opt.bf_shift, opt.n_hashes)
     _eq((words,), (TT.bloom_build_plain(ret, keep, opt.bf_shift,
                                         opt.n_hashes),))
@@ -257,21 +265,45 @@ def test_trim_path_matches_cpu(card, tmp_path, monkeypatch):
     assert got == TDP.run_device(opt, str(fq), device="cpu")
 
 
-def test_trim_at_b35_takes_ki(card, tmp_path):
-    """-1 -k51 -b35: KF would need 128 GiB of scratch, so the verdict is
-    KI's, KF never launches, and the output equals the CPU run's."""
+def _trim_b35(card, tmp_path, monkeypatch, base):
+    """-1 -k51 -b35 on the card with arrivals numbered from base: the
+    report, the launches of KF and KI, and whether the output equals the
+    CPU run's."""
     b, q = _reads()
     fq = _write_fq(tmp_path / "reads.fq", b, q)
     opt = Opts()
     opt.k = 51
     opt.bf_shift = 35
     opt.filter_mode = True
+    init = TC.AggBuilder.__init__
+
+    def shifted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.arrival_base = base
+
+    monkeypatch.setattr(TC.AggBuilder, "__init__", shifted)
     rep = {}
     kernels.reset_launches()
     got = TDP.run_device(opt, str(fq), device=card, report=rep)
+    launches = (kernels.KF.launches, kernels.KI.launches)
+    return rep, launches, got == TDP.run_device(opt, str(fq), device="cpu")
+
+
+def test_trim_at_b35_takes_ki(card, tmp_path, monkeypatch):
+    """-1 -k51 -b35 with arrivals from 2^33: the verdict is KI's, KF never
+    launches, and the output equals the CPU run's."""
+    rep, launches, same = _trim_b35(card, tmp_path, monkeypatch, 1 << 33)
     assert rep["verdict"] == "KI" and rep["reads_kept"] > 0
-    assert kernels.KF.launches == 0 and kernels.KI.launches == 1
-    assert got == TDP.run_device(opt, str(fq), device="cpu")
+    assert launches == (0, 1) and same
+
+
+def test_trim_at_b35_takes_kf(card, tmp_path, monkeypatch):
+    """-1 -k51 -b35 from arrival 0: KF's 16 bytes a row and 4 a Bloom
+    block are free, so the verdict is KF's, KI never launches, and the
+    output equals the CPU run's."""
+    rep, launches, same = _trim_b35(card, tmp_path, monkeypatch, 0)
+    assert rep["verdict"] == "KF" and rep["reads_kept"] > 0
+    assert launches == (1, 0) and same
 
 
 def _probe_idx(rng, shape, n):
@@ -350,6 +382,9 @@ def test_ki_kj_kk_kl_match_plain(card, tmp_path, k):
                                    run.n.to(torch.int32), 24, H)
     for shift in (0, 1 << 33):
         arr = run.arr + shift
+        for b in (12, 35):   # blocks of over 1,000 rows; -b35
+            _eq((spec.adjudicate_first_occurrence(ret, arr, b, H),),
+                (spec.adjudicate_first_occurrence_plain(ret, arr, b, H),))
         fp = spec.adjudicate_first_occurrence(ret, arr, 24, H)
         _eq((fp,), (spec.adjudicate_first_occurrence_plain(ret, arr, 24, H),))
         _eq((fp,), (kf,))

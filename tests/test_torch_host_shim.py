@@ -2,8 +2,9 @@
 plain PyTorch versions.
 
 csrc/*.cuh hold each kernel's per-slot and per-chunk (KA, KC), per-read
-(KD, KH), per-row (KB, KE, KF, KG, KJ, KK), per-block (KI), per-key (KL,
-KN), per-tile (KM) or per-query, per-element and per-row (the probe
+(KD, KH), per-row (KB, KE, KG, KJ, KK; the steps of KF's and KI's
+block-local verdict), per-key (KL, KN), per-tile (KM) or per-query,
+per-element and per-row (the probe
 kernels KO-KR) body as __host__ __device__ functions; csrc/host_shim.cpp
 wraps them in loops over the reads, rows or tiles that one CUDA thread
 or block would take, and for KA and KC over a warp's chunks and lanes,
@@ -16,6 +17,7 @@ equality."""
 
 import ctypes
 import functools
+import itertools
 import re
 import subprocess
 import tempfile
@@ -59,11 +61,13 @@ def shim(tmp_path_factory):
     lib.kc_host.argtypes = [P, P, I, I, I, I, I, I, P, P, I, I, P, P, P, P]
     lib.kd_host.argtypes = [P, P, I, I, I, I, I, P, I, I] + [P] * 8 + [I, P]
     lib.ke_host.argtypes = [LL] + [P] * 6
-    lib.kf_host.argtypes = [LL, P, P, P, I, I, P, P, P]
+    lib.kf_host.argtypes = [LL, P, P, P, I, I, I, I, P, P]
+    lib.kf_host.restype = LL
     lib.kg_host.argtypes = [LL, P, P, I, I, P]
     lib.kh_host.argtypes = [P, P, I, I, I, P, I, I, P]
     lib.probe_bits_host.argtypes = [LL, P, I, I, P]
-    lib.ki_host.argtypes = [LL, P, P, P, P, I, I, P]
+    lib.ki_host.argtypes = [LL, P, P, I, I, I, I, P]
+    lib.ki_host.restype = LL
     lib.kj_host.argtypes = [LL, P, P, I, I, P]
     lib.kk_host.argtypes = [LL] + [P] * 8
     lib.kl_host.argtypes = [LL, P, P, P, I, I, I, P, I]
@@ -84,10 +88,10 @@ def shim(tmp_path_factory):
               lib.kp_lane_host, lib.kq_registers_host, lib.kq_shared_host,
               lib.kr_host):
         f.restype = None
-    for f in (lib.ka_host, lib.kc_host, lib.kd_host, lib.ke_host, lib.kf_host,
-              lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.ki_host,
-              lib.kj_host, lib.kk_host, lib.km_count_host,
-              lib.km_scatter_host, lib.subtable_slots_host):
+    for f in (lib.ka_host, lib.kc_host, lib.kd_host, lib.ke_host,
+              lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.kj_host,
+              lib.kk_host, lib.km_count_host, lib.km_scatter_host,
+              lib.subtable_slots_host):
         f.restype = None
     return lib
 
@@ -566,23 +570,56 @@ def test_ke_body_matches_plain(shim, trim_agg):
     torch.testing.assert_close(nfh, want.nfh, rtol=0, atol=0)
 
 
-def _kf_host(shim, opt, ret, arr, n):
+def _kf_host(shim, ret, arr, n, bf_shift, H, reverse=False, sb=None):
+    """KF's verdict steps on the CPU (vd_host on u32 arrivals) with
+    superblocks of 2^sb blocks (the wrapper's verdict_shift by default);
+    the scatter takes the rows from the last with reverse."""
     C = len(ret)
-    dense = np.zeros((1 << opt.bf_shift,), np.uint32)
+    sb = tspec.verdict_shift(C, bf_shift) if sb is None else sb
     fp = torch.empty((C,), dtype=torch.bool)
     keep = torch.empty((C,), dtype=torch.bool)
-    shim.kf_host(C, _p(ret), _p(arr), _p(n), opt.bf_shift, opt.n_hashes,
-                 dense.ctypes.data, _p(fp), _p(keep))
+    dirty = shim.kf_host(C, _p(ret), _p(arr), _p(n), bf_shift, sb, H,
+                         int(reverse), _p(fp), _p(keep))
+    assert dirty == 0   # every per-bit minimum was reset
     return fp, keep
 
 
+def _ki_host(shim, ret, arr, bf_shift, H, reverse=False, sb=None):
+    """KI's verdict steps on the CPU (vd_host on u64 arrivals)."""
+    C = len(ret)
+    sb = tspec.verdict_shift(C, bf_shift) if sb is None else sb
+    fp = torch.empty((C,), dtype=torch.bool)
+    assert shim.ki_host(C, _p(ret), _p(arr), bf_shift, sb, H, int(reverse),
+                        _p(fp)) == 0
+    return fp
+
+
+def _shifts(C, bf_shift):
+    """The wrapper's superblock shift (superblocks staged in shared
+    memory), 0 (each block read whole) and the largest (superblocks past
+    VD_CAP rows, read block by block)."""
+    return (tspec.verdict_shift(C, bf_shift), 0,
+            min(tspec.SB_MAX, bf_shift - tspec.BLK_SHIFT))
+
+
+def _rows_a_block(ret, bf_shift):
+    block = ret & ((1 << (bf_shift - tspec.BLK_SHIFT)) - 1)
+    return torch.bincount(block, minlength=1 << (bf_shift - tspec.BLK_SHIFT))
+
+
 def test_kf_body_matches_plain(shim, trim_agg):
+    """KF's steps on the trim aggregate, with the scatter in the natural
+    order and reversed (the verdict is free of the order in a block), at
+    each superblock shift of _shifts."""
     opt, _, ret, arr, n, _ = trim_agg
-    got = _kf_host(shim, opt, ret, arr, n)
     want = tspec.adjudicate_sketch_plain(ret, arr, n, opt.bf_shift,
                                          opt.n_hashes)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for sb in _shifts(len(ret), opt.bf_shift):
+        for reverse in (False, True):
+            got = _kf_host(shim, ret, arr, n, opt.bf_shift, opt.n_hashes,
+                           reverse, sb)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert int((want[0] & (n == 1)).sum()) > 0
 
 
@@ -615,20 +652,125 @@ def test_kg_kh_bodies_match_plain(shim, trim_agg):
 
 
 def test_ki_body_matches_plain(shim, trim_agg):
-    """KI's block replay over the wrapper's (block, arrival) order, with
-    arrivals from 0 and from 2^33."""
+    """KI's steps with arrivals from 0 and from 2^33, the scatter in the
+    natural order and reversed, at each superblock shift of _shifts,
+    against the plain version."""
     opt, run, ret, _, _, _ = trim_agg
+    sbs = _shifts(len(ret), opt.bf_shift)
     for shift in (0, 1 << 33):
         arr = run.arr + shift
-        perm, starts = tspec.block_order(ret, arr, opt.bf_shift)
-        fp = torch.empty((len(ret),), dtype=torch.bool)
-        shim.ki_host(len(starts) - 1, _p(starts), _p(perm), _p(ret),
-                     _p(arr), opt.bf_shift, opt.n_hashes, _p(fp))
         want = tspec.adjudicate_first_occurrence_plain(ret, arr, opt.bf_shift,
                                                        opt.n_hashes)
-        torch.testing.assert_close(fp, want, rtol=0, atol=0)
+        for sb in sbs:
+            for reverse in (False, True):
+                fp = _ki_host(shim, ret, arr, opt.bf_shift, opt.n_hashes,
+                              reverse, sb)
+                torch.testing.assert_close(fp, want, rtol=0, atol=0)
         assert int((want & (run.n == 1)).sum()) > 0
-        assert int((starts[1:] - starts[:-1]).max()) > 32  # hot blocks
+    assert int(_rows_a_block(ret, opt.bf_shift).max()) > 8  # chunked blocks
+    # the wrapper's shift stages superblocks; the largest overflows them
+    assert 0 < sbs[0] < sbs[2]
+    x = opt.bf_shift - tspec.BLK_SHIFT
+    per_super = torch.bincount((ret & ((1 << x) - 1)) >> sbs[2])
+    assert int(per_super.max()) > VD_CAP
+
+
+def _tied_rows(seed=5, C=3000, bf_shift=14):
+    """Rows in 32 blocks at -b14 with arrivals drawn from 400 values, so
+    that many rows of one block share an arrival."""
+    rng = np.random.default_rng(seed)
+    ret = rng.integers(0, 1 << 62, C, dtype=np.int64)
+    arr = rng.integers(0, 400, C).astype(np.int64)
+    return torch.from_numpy(ret), torch.from_numpy(arr), bf_shift
+
+
+def _crowded_rows(seed=7, C=3000, bf_shift=20):
+    """Rows whose blocks all lie in the first 16 of 2,048 (-b20), ~190
+    rows a block: one superblock of 2^8 blocks holds more than VD_CAP
+    rows."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 1 << 51, C, dtype=np.int64) << 11
+    ret = hi | rng.integers(0, 16, C, dtype=np.int64)
+    arr = rng.permutation(C).astype(np.int64)
+    return torch.from_numpy(ret), torch.from_numpy(arr), bf_shift
+
+
+def _tiny_blocks(seed=8, bf_shift=24, n_blocks=4000):
+    """Blocks of 1 to 12 rows at -b24 (most judged by vd_pair_fp, the rest
+    on tables) whose probe walks overlap: a block's rows start k = 0..3
+    strides along one walk (a few with a stride of their own), arrivals
+    from 12 values, so that many rows are hits and many miss one bit."""
+    rng = np.random.default_rng(seed)
+    x = bf_shift - tspec.BLK_SHIFT
+    rows = []
+    for blk in rng.choice(1 << x, n_blocks, replace=False):
+        m = int(rng.integers(1, 13))
+        z0, h2 = rng.integers(0, 512), rng.integers(1, 512)
+        k = rng.integers(0, 4, m)
+        h = np.where(rng.random(m) < 0.15, rng.integers(1, 512, m), h2)
+        z = (z0 + k * h2) % 512
+        hi = rng.integers(0, 1 << 20, m)
+        rows.append(blk | z << x | h << bf_shift | hi << (bf_shift + 9))
+    ret = np.concatenate(rows).astype(np.int64)
+    arr = rng.integers(0, 12, len(ret)).astype(np.int64)
+    return torch.from_numpy(ret), torch.from_numpy(arr), bf_shift
+
+
+VD_CAP = 2048  # csrc/verdict.cuh: a superblock's rows staged in shared memory
+VD_PAIR = 8    # csrc/verdict.cuh: larger blocks are judged on tables
+VERDICT_CASES = ["hot-block", "ties", "empty", "one-row", "crowded",
+                 "tiny-blocks"]
+
+
+@pytest.mark.parametrize("arrivals", ["u32", "u64"])
+@pytest.mark.parametrize("case", VERDICT_CASES)
+def test_verdict_body_cases(shim, trim_agg, case, arrivals):
+    """KF's (u32) and KI's (u64) verdict steps against their plain
+    versions, scatter forward and reversed: the trim aggregate at -b12,
+    where a block holds over 1,000 rows (each block read whole by a CTA);
+    rows of equal arrival in one block; C = 0; C = 1; a superblock of
+    more rows than shared memory stages (read block by block).  KF takes
+    arrivals from 0 and from 2^31 + 2^30 (u32 patterns past the int32
+    sign), KI from 0 and from 2^33."""
+    opt, run, ret, _, n, _ = trim_agg
+    H = opt.n_hashes
+    if case == "hot-block":
+        arr, b = run.arr, 12
+        assert int(_rows_a_block(ret, b).max()) >= 1000
+    elif case == "ties":
+        ret, arr, b = _tied_rows()
+        n = torch.from_numpy(np.random.default_rng(6).integers(
+            -1, 4, len(ret)).astype(np.int32))
+        assert int(_rows_a_block(ret, b).max()) > 8
+    elif case == "crowded":
+        ret, arr, b = _crowded_rows()
+        n = torch.ones((len(ret),), dtype=torch.int32)
+        assert tspec.verdict_shift(len(ret), b) == 8 and len(ret) > VD_CAP
+    elif case == "tiny-blocks":
+        ret, arr, b = _tiny_blocks()
+        n = torch.from_numpy(np.random.default_rng(9).integers(
+            0, 3, len(ret)).astype(np.int32))
+        per = _rows_a_block(ret, b)
+        assert int((per[per > 0] <= VD_PAIR).sum()) > int(
+            (per > VD_PAIR).sum()) > 0
+    else:
+        C = 0 if case == "empty" else 1
+        ret, arr, n, b = ret[:C], run.arr[:C], n[:C], opt.bf_shift
+    hashes = (1, H, tspec.MAX_HASHES) if case == "tiny-blocks" else (H,)
+    for H, shift, reverse in itertools.product(
+            hashes, (0, 3 << 30) if arrivals == "u32" else (0, 1 << 33),
+            (False, True)):
+        a = arr + shift
+        if arrivals == "u32":
+            got = _kf_host(shim, ret, tsdn.as_i32(a), n, b, H, reverse)
+            want = tspec.adjudicate_sketch_plain(ret, tsdn.as_i32(a), n, b, H)
+        else:
+            got = (_ki_host(shim, ret, a, b, H, reverse),)
+            want = (tspec.adjudicate_first_occurrence_plain(ret, a, b, H),)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        if case in ("ties", "crowded", "tiny-blocks"):
+            assert 0 < int(want[0].sum()) < len(ret)
 
 
 @pytest.mark.parametrize("k", [21, 32, 33])

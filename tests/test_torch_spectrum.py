@@ -303,17 +303,41 @@ def test_derive_ret_matches_jax(k):
     assert (want >> np.uint64(63)).any() == (k >= 32)
 
 
-@pytest.mark.parametrize("arr_max,bf_shift,free,want", [
-    (10, 24, None, "KF"),                 # the CPU: no scratch limit
-    (10, 24, 4 << 24, "KF"),              # exactly enough scratch
-    (10, 24, (4 << 24) - 1, "KI"),        # one byte short
-    (10, 35, 80 * 10**9, "KI"),           # -b35 on an 80 GB card
-    (10, 37, 80 * 10**9, "KI"),           # -s 3g sets -b37
-    (10, 33, 80 * 10**9, "KF"),           # -b33 needs 32 GiB
-    (tspec.ARRIVAL_LIMIT, 24, None, "KI"),  # arrivals past 2^32 - 1
-    (tspec.ARRIVAL_LIMIT - 1, 24, None, "KF"),
+_NEED = tspec.verdict_bytes(1000, 24, "KF")  # 13 a row, 4 a superblock
+_NEED_KI = tspec.verdict_bytes(1000, 24, "KI")  # 21 a row
+_FOLD = 63_109_113                         # the 3M-read -b33 trim fold
+
+
+@pytest.mark.parametrize("arr_max,rows,bf_shift,free,want", [
+    (10, 1000, 24, None, "KF"),                  # the CPU: no limit
+    (10, 1000, 24, _NEED, "KF"),                 # exactly enough scratch
+    (10, 1000, 24, _NEED - 1, None),             # one byte short: raises
+    (10, _FOLD, 35, 80 * 10**9, "KF"),           # -b35 on an 80 GB card
+    (10, _FOLD, 37, 80 * 10**9, "KF"),           # -s 3g sets -b37
+    (10, _FOLD, 33, 80 * 10**9, "KF"),           # ~0.82 GB at -b33
+    (tspec.ARRIVAL_LIMIT, 1000, 24, None, "KI"),  # arrivals past 2^32 - 1
+    (tspec.ARRIVAL_LIMIT - 1, 1000, 24, None, "KF"),
+    (tspec.ARRIVAL_LIMIT, 1000, 24, _NEED_KI - 1, None),  # KI one byte short
 ])
-def test_verdict_route(arr_max, bf_shift, free, want):
-    """KI wherever KF's 4 * 2^b bytes of scratch are not free, or an
-    arrival reaches 2^32 - 1; KF otherwise."""
-    assert tspec.verdict_route(arr_max, bf_shift, free) == want
+def test_verdict_route(arr_max, rows, bf_shift, free, want):
+    """KF below 2^32 - 1 arrivals, KI from there; each needs its
+    verdict_bytes, and a card without them free raises (no fallback to
+    the other kernel or the plain version)."""
+    by = "KF" if arr_max < tspec.ARRIVAL_LIMIT else "KI"
+    if want is None:
+        need = _NEED if by == "KF" else _NEED_KI
+        with pytest.raises(RuntimeError, match=f"needs {need} bytes"):
+            tspec.verdict_route(arr_max, rows, bf_shift, free)
+    else:
+        assert tspec.verdict_route(arr_max, rows, bf_shift, free) == want
+    # superblocks of 2^S blocks: the most, up to 2^8, that keep 1,024
+    # rows or fewer a superblock on average
+    x = bf_shift - 9
+    S = min(8, x, ((1024 << x) // rows).bit_length() - 1)
+    assert tspec.verdict_shift(rows, bf_shift) == S
+    n_super = 2 ** (x - S)
+    # a record (8 bytes for KF, 16 for KI), a slot and a verdict byte a
+    # row; a word a superblock and a scan tile
+    assert tspec.verdict_bytes(rows, bf_shift, by) == (
+        (13 if by == "KF" else 21) * rows + 4 * n_super
+        + 4 * -(-n_super // 2048))

@@ -1,4 +1,5 @@
-// Blocked Bloom filter addressing and the per-row bodies of KE, KG, KH.
+// Blocked Bloom filter addressing, the per-row bodies of KE and KG, and
+// the per-chunk steps of KH.
 //
 // bloom_probe_bits is the scalar form of bfc_tpu/ops/spectrum.py:
 // bloom_probe_bits (:184) and of the reference's bbf.c:27-37: the low
@@ -55,14 +56,17 @@ BFC_HD void bloom_probe_bits(uint64_t ret, int bf_shift, int n_hashes,
                   [&](uint32_t z) { out[j++] = base | z; });
 }
 
-// True where every probed bit of ret is set in the u32 words (bbf.c:47-63).
+// True where every probed bit of ret is set in the u32 words (bbf.c:47-63):
+// the 16 words of its block, no word loaded after the first unset bit.
 BFC_HD bool bloom_query(const uint32_t* words, uint64_t ret, int bf_shift,
                         int n_hashes) {
-    uint64_t bits[BFC_MAX_HASHES];
-    bloom_probe_bits(ret, bf_shift, n_hashes, bits);
-    for (int j = 0; j < n_hashes; j++)
-        if (!((words[bits[j] >> 5] >> (bits[j] & 31)) & 1u)) return false;
-    return true;
+    const uint32_t* blk =
+        words + (bloom_block(ret, bf_shift) << (BFC_BLK_SHIFT - 5));
+    bool all = true;
+    bloom_offsets(bloom_zh(ret, bf_shift), n_hashes, [&](uint32_t z) {
+        all = all && ((blk[z >> 5] >> (z & 31)) & 1u);
+    });
+    return all;
 }
 
 #ifdef __CUDA_ARCH__
@@ -96,31 +100,62 @@ BFC_HD void kg_row(int64_t i, const int64_t* ret, const uint8_t* keep,
         BFC_ATOMIC_OR_U32(words + (bits[j] >> 5), 1u << (bits[j] & 31));
 }
 
-// KH, one read: the longest run of k-mers whose bits are all set, packed
-// len << 32 | end (refmodel.max_streak; reference correct.c:478-497).  t
-// gains 1 << 32 at each hit and restarts at i + 1 elsewhere, so the
-// numeric maximum resolves equal lengths to the later run.
-BFC_HD int64_t kh_read(const uint8_t* bases, int len, int k,
-                       const uint32_t* words, int bf_shift, int n_hashes) {
-    uint64_t x[4] = {0, 0, 0, 0};
-    uint64_t t = 0, best = 0, h0, h1;
-    int run = 0;
-    for (int i = 0; i < len; i++) {
-        int c = bases[i];
-        if (c < 4) {
-            kmer_append(x, c, k);
-            if (++run >= k &&
-                bloom_query(words, kmer_hash(x, k, &h0, &h1), bf_shift,
-                            n_hashes))
-                t += 1ull << 32;
-            else
-                t = (uint64_t)(i + 1);
-        } else {
-            run = 0;
-            kmer_clear(x);
-            t = (uint64_t)(i + 1);
-        }
-        if (t > best) best = t;
+// KH, one read a warp, a 32-slot chunk at a time: the longest run of
+// k-mers whose bits are all set, packed len << 32 | end (refmodel.
+// max_streak; reference correct.c:478-497).  The reference rolls t along
+// the read: t gains 1 << 32 at a hit and restarts at i + 1 at any other
+// slot (an N, a slot before k - 1, a k-mer not in the filter), and the
+// answer is the largest t over i < len, so a read without a hit gives
+// len, and equal runs resolve to the later one through the low word.
+// The warp takes each chunk's hits as one ballot word, and lane j derives
+// slot base + j's t from it and the hit run carried into the chunk.
+
+// Lane j's slot holds a k-mer (all ACGT inside the read, ending at or
+// after k - 1: win_kmer) whose probed bits are all set.
+BFC_HD bool kh_hit(const SlotWin& w, int j, int k, const uint32_t* words,
+                   int bf_shift, int n_hashes) {
+    uint64_t x[4], h0, h1;
+    return win_kmer(w, j, k, x) &&
+           bloom_query(words, kmer_hash(x, k, &h0, &h1), bf_shift, n_hashes);
+}
+
+// The hit run reaching the current chunk: its length, and its first slot
+// (where run is 0, the chunk's first slot).
+struct KhRun {
+    uint32_t run, start;
+};
+
+// The chunk's slots inside a read of len bases: bit j for slot base + j.
+BFC_HD uint32_t kh_inside(int len, int base) {
+    int n = len - base;
+    return n >= 32 ? 0xFFFFFFFFu : n > 0 ? (1u << n) - 1u : 0u;
+}
+
+// t at lane j's slot base + j (inside the read) from the chunk's hits
+// (masked to the read) and the run carried into the chunk.
+BFC_HD uint64_t kh_lane_t(KhRun r, uint32_t hits, int j, int base) {
+    int ones = bfc_clz32(~(hits << (31 - j)));  // hits ending at slot j
+    if (ones == 0) return (uint64_t)(base + j + 1);
+    if (ones == j + 1) return (uint64_t)(r.run + ones) << 32 | r.start;
+    return (uint64_t)ones << 32 | (uint32_t)(base + j + 1 - ones);
+}
+
+// The run carried into the next chunk.
+BFC_HD KhRun kh_carry(KhRun r, uint32_t hits, int base) {
+    int top = bfc_clz32(~hits);  // hits ending at the chunk's last slot
+    if (top == 32) return {r.run + 32, r.start};
+    return {(uint32_t)top, (uint32_t)(base + 32 - top)};
+}
+
+// One chunk of lane j, whose best t so far is *best: hits are the chunk's
+// hit ballot (bits past len are ignored).
+BFC_HD void kh_step(KhRun& r, uint64_t* best, uint32_t hits, int j, int base,
+                    int len) {
+    uint32_t in = kh_inside(len, base);
+    hits &= in;
+    if ((in >> j) & 1) {
+        uint64_t t = kh_lane_t(r, hits, j, base);
+        if (t > *best) *best = t;
     }
-    return (int64_t)best;
+    r = kh_carry(r, hits, base);
 }

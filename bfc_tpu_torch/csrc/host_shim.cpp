@@ -268,12 +268,54 @@ void kg_host(long long C, const int64_t* ret, const uint8_t* keep,
         kg_row(i, ret, keep, bf_shift, n_hashes, words);
 }
 
+// KH's warp a read: each chunk's ballot words built lane by lane, the
+// lanes' hits, then each lane's step; the read's answer is the largest of
+// its lanes' (the warp's shuffle maximum).
 void kh_host(const uint8_t* bases, const int32_t* lens, int B, int L, int k,
              const uint32_t* words, int bf_shift, int n_hashes,
              int64_t* out) {
-    for (int r = 0; r < B; r++)
-        out[r] = kh_read(bases + (size_t)r * L, lens[r], k, words, bf_shift,
-                         n_hashes);
+    for (int r = 0; r < B; r++) {
+        const uint8_t* row = bases + (size_t)r * L;
+        int n = lens[r] < L ? lens[r] : L;
+        SlotWin w;
+        win_clear(w);
+        KhRun run[32] = {};
+        uint64_t best[32] = {};
+        for (int base = 0; base < n; base += 32) {
+            for (int lane = 0; lane < 32; lane++) {
+                unsigned c, q;
+                slot_load(row, nullptr, n, L, base + lane, &c, &q);
+                unsigned v = slot_votes(c, q);
+                for (int i = 0; i < 3; i++)
+                    w.cur[i] = (w.cur[i] & ~(1u << lane)) |
+                               (((v >> i) & 1u) << lane);
+            }
+            uint32_t hits = 0;
+            for (int lane = 0; lane < 32; lane++)
+                hits |= (uint32_t)kh_hit(w, lane, k, words, bf_shift,
+                                         n_hashes) << lane;
+            for (int lane = 0; lane < 32; lane++)
+                kh_step(run[lane], &best[lane], hits, lane, base, n);
+            win_next(w);
+        }
+        uint64_t m = 0;
+        for (int lane = 0; lane < 32; lane++)
+            m = best[lane] > m ? best[lane] : m;
+        out[r] = (int64_t)m;
+    }
+}
+
+// KH's steps alone over given hit words (hits[c]: chunk c's ballot),
+// lane by lane, for a read of len slots.
+long long kh_steps_host(const uint32_t* hits, int n_chunks, int len) {
+    KhRun run[32] = {};
+    uint64_t best[32] = {};
+    for (int c = 0; c < n_chunks; c++)
+        for (int lane = 0; lane < 32; lane++)
+            kh_step(run[lane], &best[lane], hits[c], lane, 32 * c, len);
+    uint64_t m = 0;
+    for (int lane = 0; lane < 32; lane++) m = best[lane] > m ? best[lane] : m;
+    return (long long)m;
 }
 
 long long ki_host(long long C, const int64_t* ret, const uint64_t* arr,
@@ -347,15 +389,58 @@ void subtable_slots_host(long long n, const int64_t* shard,
     }
 }
 
-// KM's pass (i) tile by tile: cnt is [R x n_tiles].
-void km_count_host(long long N, int rule, const int64_t* shard,
-                   const int64_t* ret, int param, int R, long long n_tiles,
-                   int64_t* cnt) {
-    for (long long t = 0; t < n_tiles; t++)
-        km_count_tile(t, N, rule, shard, ret, param, R, n_tiles, cnt);
+// The lanes of a warp chunk whose destination equals lane j's
+// (__match_any_sync).
+static unsigned km_peers(const int* d, int j) {
+    unsigned m = 0;
+    for (int l = 0; l < 32; l++) m |= (unsigned)(d[l] == d[j]) << l;
+    return m;
 }
 
-// KM's pass (ii) tile by tile, from the scanned offsets.
+// KM's count pass, each tile's counts into off ([R x n_tiles]) and added
+// to totals (R, zeroed here), then its scan pass as its blocks run it, a
+// destination at a time, thread part by thread part.  N = 0: the
+// wrapper launches nothing, every count is 0.
+void km_count_host(long long N, int rule, const int64_t* shard,
+                   const int64_t* ret, int param, int R, long long n_tiles,
+                   int64_t* off, int64_t* totals) {
+    for (int d = 0; d < R; d++) totals[d] = 0;
+    for (long long t = 0; t < n_tiles; t++) {
+        int64_t cnt[KM_MAX_RANKS] = {0};
+        for (int w = 0; w < KM_WARPS; w++)
+            for (int c = 0; c < KM_CHUNKS; c++)
+                for (int l = 0; l < 32; l++) {
+                    int d = km_dest_at(rule, shard, ret, km_row(t, w, c, l),
+                                       N, param, R);
+                    if (d < R) cnt[d]++;
+                }
+        for (int d = 0; d < R; d++) {
+            off[d * n_tiles + t] = cnt[d];
+            totals[d] += cnt[d];
+        }
+    }
+    int64_t before = 0;
+    for (int d = 0; d < R && n_tiles; d++) {
+        int64_t* cnt = off + d * n_tiles;
+        int64_t lo[KM_THREADS], hi[KM_THREADS], part[KM_THREADS];
+        int64_t base = before;
+        for (int tid = 0; tid < KM_THREADS; tid++) {
+            km_scan_part(n_tiles, tid, &lo[tid], &hi[tid]);
+            part[tid] = km_part_sum(cnt, lo[tid], hi[tid]);
+        }
+        for (int tid = 0; tid < KM_THREADS; tid++) {
+            km_part_write(cnt, lo[tid], hi[tid], base);
+            base += part[tid];
+        }
+        before += totals[d];
+    }
+}
+
+// KM's scatter pass, tile by tile as its block runs it (off as
+// km_count_host leaves it): each warp's chunks ranked lane by lane (all
+// lanes read the running count, then the first of each destination adds
+// its peers), the (warp, destination) bases, the segments' starts, the
+// staged rows, then the slots in order.
 void km_scatter_host(long long N, int rule, const int64_t* shard,
                      const int64_t* ret, int param, int R, long long n_tiles,
                      const int64_t* off, const int64_t* in0,
@@ -363,10 +448,55 @@ void km_scatter_host(long long N, int rule, const int64_t* shard,
                      const int64_t* in3, int64_t* out0, int64_t* out1,
                      int64_t* out2, int64_t* out3, int64_t* perm) {
     KmCols c = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-    int64_t next[KM_MAX_RANKS];
-    for (long long t = 0; t < n_tiles; t++)
-        km_scatter_tile(t, N, rule, shard, ret, param, R, n_tiles, off, c,
-                        perm, next);
+    int wc[KM_WARPS * KM_MAX_RANKS], v[KM_WARPS][KM_CHUNKS][32];
+    int seg[KM_MAX_RANKS];
+    int64_t base[KM_MAX_RANKS];
+    uint16_t row[KM_TILE];
+    uint8_t dst[KM_TILE];
+    for (long long t = 0; t < n_tiles; t++) {
+        for (int e = 0; e < KM_WARPS * KM_MAX_RANKS; e++) wc[e] = 0;
+        for (int w = 0; w < KM_WARPS; w++)
+            for (int ch = 0; ch < KM_CHUNKS; ch++) {
+                int d[32], before[32];
+                for (int l = 0; l < 32; l++) {
+                    d[l] = km_dest_at(rule, shard, ret, km_row(t, w, ch, l),
+                                      N, param, R);
+                    before[l] = d[l] < R ? wc[w * KM_MAX_RANKS + d[l]] : 0;
+                }
+                for (int l = 0; l < 32; l++) {
+                    unsigned peers = km_peers(d, l);
+                    if (d[l] < R && l == __builtin_ctz(peers))
+                        wc[w * KM_MAX_RANKS + d[l]] =
+                            before[l] + __builtin_popcount(peers);
+                    v[w][ch][l] = km_pack(
+                        d[l], before[l] + __builtin_popcount(
+                                              peers & ((1u << l) - 1u)));
+                }
+            }
+        int n_keep = 0;
+        for (int d = 0; d < R; d++) {
+            int tot = km_warp_bases(wc, d);
+            seg[d] = n_keep;
+            base[d] = off[d * n_tiles + t] - n_keep;
+            n_keep += tot;
+        }
+        for (int w = 0; w < KM_WARPS; w++)
+            for (int ch = 0; ch < KM_CHUNKS; ch++)
+                for (int l = 0; l < 32; l++) {
+                    int d = km_pack_dest(v[w][ch][l]);
+                    if (d >= R) continue;
+                    int pos = seg[d] + wc[w * KM_MAX_RANKS + d] +
+                              km_pack_rank(v[w][ch][l]);
+                    row[pos] = (uint16_t)km_tile_row(w, ch, l);
+                    dst[pos] = (uint8_t)d;
+                }
+        for (int j = 0; j < KM_COLS; j++)
+            for (int s = 0; c.in[j] && s < n_keep; s++)
+                c.out[j][km_slot_pos(s, dst, base)] =
+                    c.in[j][km_slot_row(t, s, row)];
+        for (int s = 0; s < n_keep; s++)
+            perm[km_slot_pos(s, dst, base)] = km_slot_row(t, s, row);
+    }
 }
 
 void probe_bits_host(long long C, const int64_t* ret, int bf_shift,

@@ -109,6 +109,14 @@ BFC_HD int bfc_popc64(uint64_t v) {
 #endif
 }
 
+BFC_HD int bfc_clz32(uint32_t v) {  // 32 for v == 0
+#ifdef __CUDA_ARCH__
+    return __clz(v);
+#else
+    return v ? __builtin_clz(v) : 32;
+#endif
+}
+
 BFC_HD int bfc_ctz64(uint64_t v) {  // v != 0
 #ifdef __CUDA_ARCH__
     return __ffsll((long long)v) - 1;

@@ -119,7 +119,8 @@ KL = Kernel("cuckoo_build", {
     "kl_launch": [_LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 })
 KM = Kernel("route_rows", {
-    "km_count_launch": [_LL, _I, _P, _P, _I, _I, _LL, _P, _P],
+    "km_count_launch": [_LL, _I, _P, _P, _I, _I, _LL, _P, _P, _P],
+    "km_scan_launch": [_I, _LL, _P, _P, _P, _P],
     "km_scatter_launch": [_LL, _I, _P, _P, _I, _I, _LL] + [_P] * 11,
 })
 KN = Kernel("cuckoo_build_local", {

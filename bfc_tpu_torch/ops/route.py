@@ -77,6 +77,64 @@ def route_rows_plain(cols: Sequence, R: int, rule: int, param: int,
                    for c in cols], counts, perm)
 
 
+_km = {}  # a card's KM state: pinned counts and an event
+
+
+def _state(dev):
+    """(pinned counts, event) of dev, made at its first call: the counts
+    MAX_RANKS int64 of pinned host memory that the count pass copies its
+    totals to, the event recorded behind it."""
+    st = _km.get(dev)
+    if st is None:
+        st = _km[dev] = (
+            torch.empty((MAX_RANKS,), dtype=torch.int64, pin_memory=True),
+            torch.cuda.Event())
+    return st
+
+
+def buffer(N: int, R: int, n_cols: int, dev) -> torch.Tensor:
+    """One call's int64 device memory: n_cols output columns and perm of N
+    rows each, then the R x tiles counts (then first slots) and R
+    totals."""
+    n_tiles = (N + TILE - 1) // TILE
+    return torch.empty(((n_cols + 1) * N + R * n_tiles + R,),
+                       dtype=torch.int64, device=dev)
+
+
+def enqueue(cols: Sequence, R: int, rule: int, param: int, shard, ret, buf,
+            event=None):
+    """Enqueue KM on the current stream, with no wait: the count pass, the
+    scan pass (and the copy of the R totals to the pinned counts of
+    _state), then `event` where given, then the scatter into buf (from
+    buffer(), N >= 1 rows): its present columns, then perm, N rows each,
+    of which the leading sum(counts) are written."""
+    key = shard if rule == PREFIX else ret
+    N = key.shape[0]
+    n_tiles = (N + TILE - 1) // TILE
+    pinned, _ = _state(key.device)
+
+    def p(t):
+        return None if t is None else t.data_ptr()
+
+    # buf's parts by address: the outputs, perm, off, totals
+    at = buf.data_ptr()
+    outs = []
+    for c in cols:
+        outs.append(None if c is None else at)
+        at += 0 if c is None else 8 * N
+    perm, off = at, at + 8 * N
+    totals = off + 8 * R * n_tiles
+    kernels.KM.launch("km_count_launch", N, rule, p(shard), p(ret), param, R,
+                      n_tiles, off, totals)
+    kernels.KM.launch("km_scan_launch", R, n_tiles, off, totals, p(pinned))
+    if event is not None:
+        event.record()
+    pad = [None] * (MAX_COLS - len(cols))
+    kernels.KM.launch("km_scatter_launch", N, rule, p(shard), p(ret), param,
+                      R, n_tiles, off, *(p(c) for c in cols), *pad, *outs,
+                      *pad, perm)
+
+
 def route_rows(cols: Sequence, R: int, rule: int, param: int, shard=None,
                ret=None) -> Routed:
     """Stable partition of rows by destination rank (kernel KM).
@@ -85,8 +143,10 @@ def route_rows(cols: Sequence, R: int, rule: int, param: int, shard=None,
     rule PREFIX takes shard (int64 [N]) and param l_pre; rule BLOOM takes
     ret (int64 [N], u64 bit patterns) and param bf_shift, and shard where
     invalid rows must be dropped.  R ranks, 1..256.  Returns the send
-    buffers, the per-destination counts (a host list: reading them waits
-    for the count pass) and perm, the source row of each sent row."""
+    buffers, the per-destination counts (a host list) and perm, the source
+    row of each sent row.  On the card the call waits once, on an event
+    behind the count and scan passes, with the scatter already enqueued;
+    the buffers are the leading rows of outputs allocated for all N rows."""
     key = shard if rule == PREFIX else ret
     if key is None:
         raise ValueError("the PREFIX rule needs shard, the BLOOM rule ret")
@@ -102,23 +162,26 @@ def route_rows(cols: Sequence, R: int, rule: int, param: int, shard=None,
             kernels.check(t, name, torch.int64, (N,), dev)
     if dev.type == "cpu":
         return route_rows_plain(cols, R, rule, param, shard, ret)
-    n_tiles = (N + TILE - 1) // TILE
+    return _route(cols, R, rule, param, shard, ret)
 
-    def p(t):
-        return None if t is None else t.data_ptr()
 
-    cnt = torch.empty((R, n_tiles), dtype=torch.int64, device=dev)
-    kernels.KM.launch("km_count_launch", N, rule, p(shard), p(ret), param, R,
-                      n_tiles, p(cnt))
-    flat = cnt.view(-1)
-    off = torch.cumsum(flat, 0) - flat
-    counts = cnt.sum(dim=1).tolist()
+def _route(cols, R: int, rule: int, param: int, shard, ret) -> Routed:
+    """route_rows on checked card tensors: KM enqueued, one wait."""
+    key = shard if rule == PREFIX else ret
+    N, dev = key.shape[0], key.device
+    if N == 0:
+        empty = torch.empty((0,), dtype=torch.int64, device=dev)
+        return Routed([None if c is None else empty for c in cols], [0] * R,
+                      empty)
+    pinned, event = _state(dev)
+    n_cols = sum(c is not None for c in cols)
+    buf = buffer(N, R, n_cols, dev)
+    enqueue(cols, R, rule, param, shard, ret, buf, event)
+    event.synchronize()
+    counts = pinned[:R].tolist()
     n = sum(counts)
-    outs = [None if c is None else torch.empty((n,), dtype=torch.int64,
-                                               device=dev) for c in cols]
-    perm = torch.empty((n,), dtype=torch.int64, device=dev)
-    pad = [None] * (MAX_COLS - len(cols))
-    kernels.KM.launch("km_scatter_launch", N, rule, p(shard), p(ret), param,
-                      R, n_tiles, p(off), *(p(c) for c in cols), *pad,
-                      *(p(o) for o in outs), *pad, p(perm))
-    return Routed(outs, counts, perm)
+    outs, a = [], 0
+    for c in cols:
+        outs.append(None if c is None else buf[a:a + n])
+        a += 0 if c is None else N
+    return Routed(outs, counts, buf[a:a + n])

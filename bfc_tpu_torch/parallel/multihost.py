@@ -194,7 +194,10 @@ def launch(nproc: int, argv: List[str], backend: Optional[str] = None,
                        BFC_TPU_INIT_METHOD=f"file://{tmp}/rendezvous")
             env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH",
                                                                 "")
-            cmd = [sys.executable, "-m", "bfc_tpu_torch.parallel.multihost"]
+            # -P: the ranks import this package, not one that a working
+            # directory holding another checkout would put first
+            cmd = [sys.executable, "-P", "-m",
+                   "bfc_tpu_torch.parallel.multihost"]
             if backend:
                 cmd += ["--backend", backend]
             if report_path and r == 0:

@@ -1,9 +1,10 @@
 """A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
-KD (ec1_search), KF (bloom_adjudicate) and KI (first_occurrence) of one
-tree of bfc_tpu_torch on one CUDA card.
+KD (ec1_search), KF (bloom_adjudicate), KI (first_occurrence), KM
+(route_rows) and KH (max_streak) of one tree of bfc_tpu_torch on one CUDA
+card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
-                       [--correct-batch N]
+                       [--correct-batch N] [--parts main,verdicts,km,kh]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -38,7 +39,28 @@ each as the mean of 5 wrapper calls (host cost included), as a kernel
 on inputs and scratch made beforehand, host cost excluded; "scope" says
 what that launcher does; "breakdown_ms" its kernels' device ms from a
 torch.profiler trace), with the sha256 of fp (and KF's keep) and the
-device bytes a wrapper call allocates above what was held.
+device bytes a wrapper call allocates above what was held.  Then KM by
+the prefix rule on the 2,097,152-row counting batch (KA's rows of the
+first 16,384 reads) at R = 1, 2 and 8, and by the Bloom-block rule on the
+main fold's (ret, arrival) rows at R = 2 and 8; and KH over the trim
+path's Bloom filter (`-1 -k51`, -b33) on the 8,192-read trim batch of 128
+slots and on 4,096 rows of 600 slots (chip_smoke.py's long rows).  Each
+as the mean of 20 wrapper calls in a row and the median of 11 timed one
+at a time (host cost included), and as kernels (the median replay of a
+CUDA graph of 50 calls, host cost excluded: KH its wrapper, whose call
+launches and returns; KM its launches alone, on inputs, scan scratch and
+outputs allocated beforehand: the count, the scan and the scatter, with
+no read of the counts; "breakdown_ms" their device ms from a
+torch.profiler trace), with the sha256 of KM's columns, counts and perm
+and of KH's output, KM's rows sent and a call's device bytes above what
+was held, and each bound (chip_smoke.py's count); and the host side of
+one trim batch without KH (trim_host_ms).
+Then (paths) the walls of the paths that run KH and KM, as their reports
+give them, with the outputs' sha256: the trim path (`-1 -k51`, host
+finalize) through run_device, and the main path over two gloo ranks
+sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
+rank's KM launches.  --parts picks the sections: main (the count and
+KA-KD, the correction pass), verdicts, km, kh, paths.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -60,6 +82,7 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import os
 import shutil
 import sys
 import tempfile
@@ -70,6 +93,7 @@ HERE = Path(__file__).resolve().parent
 KD_READS = (8192, 65536, 131072)
 TAIL_READS = 64
 CALL_REPS = 20   # KA's and KC's wrapper calls a mean (chip_smoke.py's)
+MEDIAN_REPS = 11  # KM's and KH's calls timed one at a time for a median
 GRAPH_REPS = 50  # calls in a timed CUDA graph (chip_probe.py's REPS)
 VERDICT_REPS = 5  # KF's and KI's calls a mean, and launches a graph
 FAR = 1 << 33     # arrivals from here take KI
@@ -94,6 +118,11 @@ VARIANTS = {
          "    uint32_t end = i < C ? atomicSub(ends + q, 1u) : 0u;\n"
          "    rank = 0;")],
 }
+# KM's cases: (rule, ranks); the prefix rule on the counting batch, the
+# Bloom-block rule on the main fold
+KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
+            ("bloom", 8))
+PARTS = ("main", "verdicts", "km", "kh", "paths")
 VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
                  ("b30", 49_804_406, 30, "random"),
                  ("b30", 49_804_406, 30, "sorted"))
@@ -208,6 +237,160 @@ def verdicts(torch, smoke, kernels, spec, sdn, run, b: int, H: int):
         torch.cuda.empty_cache()
         out[name if shift == 0 else f"{name}_from_2^33"] = r
     return out
+
+
+def km_launches(torch, kernels, route, cols, R, rule, param, shard, ret,
+                got):
+    """KM's launches alone for one case, on inputs, scan scratch and
+    outputs allocated here (got: a wrapper call's result, which sizes the
+    first design's outputs): a function that enqueues them."""
+    N, dev = cols[0].shape[0], cols[0].device
+
+    def p(t):
+        return None if t is None else t.data_ptr()
+
+    if hasattr(route, "enqueue"):  # one sync a call: count + scan, scatter
+        buf = route.buffer(N, R, sum(c is not None for c in cols), dev)
+        return lambda: route.enqueue(cols, R, rule, param, shard, ret, buf)
+    # the first design: count, torch.cumsum, scatter into exact outputs
+    n_tiles = (N + route.TILE - 1) // route.TILE
+    cnt = torch.empty((R * n_tiles,), dtype=torch.int64, device=dev)
+    off = torch.empty_like(cnt)
+    n = sum(got.counts)
+    outs = [None if c is None else torch.empty((n,), dtype=torch.int64,
+                                               device=dev) for c in cols]
+    perm = torch.empty((n,), dtype=torch.int64, device=dev)
+    pad = [None] * (route.MAX_COLS - len(cols))
+
+    def fn():
+        kernels.KM.launch("km_count_launch", N, rule, p(shard), p(ret),
+                          param, R, n_tiles, p(cnt))
+        torch.cumsum(cnt, 0, out=off)
+        off.sub_(cnt)
+        kernels.KM.launch("km_scatter_launch", N, rule, p(shard), p(ret),
+                          param, R, n_tiles, p(off), *(p(c) for c in cols),
+                          *pad, *(p(o) for o in outs), *pad, p(perm))
+    return fn
+
+
+def route_cases(torch, smoke, kernels, route, sdn, opt, bases, quals, dev,
+                fold) -> dict:
+    """KM of this tree at KM_CASES: call ms, kernels ms, sha256, rows
+    sent, a call's peak bytes, bound."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    carry = not sdn.ret_derivable(k, l_pre)
+    cb, cq, cl = smoke.count_batch(bases, quals, opt, dev)
+    rows = sdn.chunk_rows(cb, cq, cl, 0, k, l_pre, carry)
+    ret = sdn.derive_ret(fold.shard, fold.keybody, k, l_pre)
+    inputs = {"prefix": (list(rows), route.PREFIX, l_pre, rows.shard, None),
+              "bloom": ([ret, fold.arr], route.BLOOM, opt.bf_shift, None,
+                        ret)}
+    out = {}
+    for rule, R in KM_CASES:
+        cols, rid, param, shard, key_ret = inputs[rule]
+        call = lambda: route.route_rows(cols, R, rid, param, shard=shard,
+                                        ret=key_ret)
+        got, peak = _peak(torch, call)
+        N = cols[0].shape[0]
+        n_cols = sum(c is not None for c in cols)
+        sent = sum(got.counts)
+        r = {"rows": N, "columns": n_cols, "rows_sent": sent,
+             "counts": got.counts, "peak_bytes": peak,
+             "sha256": _sha(*(c for c in got.cols if c is not None),
+                            torch.tensor(got.counts), got.perm),
+             "bound_ms": smoke.bound(N * 8 * n_cols
+                                     + sent * 8 * (n_cols + 1),
+                                     N * smoke.OPS_KM_ROW)[0],
+             "ms": smoke.cuda_ms(call, CALL_REPS),
+             "ms_median": smoke.cuda_median_ms(call, MEDIAN_REPS)}
+        fn = km_launches(torch, kernels, route, cols, R, rid, param, shard,
+                         key_ret, got)
+        del got
+        r["kernel_ms"] = smoke.graph_ms([fn], GRAPH_REPS)
+        r["breakdown_ms"] = _breakdown(torch, fn, 5)
+        del fn
+        torch.cuda.empty_cache()
+        out[f"{rule}_R{R}"] = r
+    return out
+
+
+def streak_cases(torch, smoke, TT, bloom, topt, bases, quals, dev) -> dict:
+    """KH of this tree over the trim Bloom filter on the trim batch and on
+    rows of 600 slots: call ms, kernel ms, sha256, bound."""
+    rlen = bases.shape[1]
+    tb = torch.full((smoke.TRIM_B, smoke.TRIM_L), 4, dtype=torch.uint8)
+    tb[:, :rlen] = torch.from_numpy(bases[:smoke.TRIM_B])
+    tl = torch.full((smoke.TRIM_B,), rlen, dtype=torch.int32)
+    lb, _, ll = smoke.long_batch(bases, quals, topt, dev)
+    out = {"host_prep_ms": trim_host_ms(torch, smoke, bases, dev)}
+    for name, (b, lens) in (("trim_batch", (tb.to(dev), tl.to(dev))),
+                            ("slots_600", (lb, ll))):
+        B, L = b.shape
+        call = lambda: TT.max_streak_batch(bloom.words, b, lens, topt.k,
+                                           bloom.bf_shift, bloom.n_hashes)
+        got = call()
+        probes = int((lens.to(torch.int64) - topt.k + 1).clamp(min=0).sum())
+        out[name] = {
+            "reads": B, "slots": L, "probes": probes, "sha256": _sha(got),
+            "streak_reads": int((got >> 32 > 0).sum()),
+            "bound_ms": smoke.bound(B * (L + 4 + 8) + probes * smoke.BLOCK,
+                                    probes * (smoke.OPS_KMER
+                                              + smoke.OPS_BLOOM))[0],
+            "ms": smoke.cuda_ms(call, CALL_REPS),
+            "ms_median": smoke.cuda_median_ms(call, MEDIAN_REPS),
+            "kernel_ms": smoke.graph_ms([call], GRAPH_REPS)}
+    return out
+
+
+def path_walls(smoke, Opts, fq: Path, tmp: Path, tree: Path) -> dict:
+    """The trim path through run_device and the main path over two gloo
+    ranks sharing the card through the launcher: walls, launches of KH
+    and KM, and the outputs' sha256.  The launcher runs from the tree, so
+    that its ranks import the tree's package even where its launcher
+    predates running them with `python -P`."""
+    topt = Opts()
+    topt.k = smoke.TRIM_K
+    topt.filter_mode = True
+    out_fq = tmp / "trimmed.fq"
+    rep, launches, _ = smoke.drive(topt, fq, out_fq)
+    rec = {"trim": {"count_s": rep["count_s"], "trim_s": rep["trim_s"],
+                    "kh_launches": launches["max_streak"],
+                    "sha256": smoke.file_hash(out_fq)}}
+    out_fq.unlink()
+    mesh_fq = tmp / "corrected_mesh.fq"
+    cwd = os.getcwd()
+    os.chdir(tree)
+    try:
+        mrep = smoke.drive_mesh(fq, mesh_fq, 2, "gloo", tmp)
+    finally:
+        os.chdir(cwd)
+    rec["mesh_gloo_2"] = {
+        "count_s": mrep["count_s"], "correct_s": mrep["correct_s"],
+        "km_launches": [ls["route_rows"] for ls in mrep["launches_by_rank"]],
+        "sha256": smoke.file_hash(mesh_fq)}
+    mesh_fq.unlink()
+    return rec
+
+
+def trim_host_ms(torch, smoke, bases, dev, reps: int = 20) -> float:
+    """The host side of one trim batch as Trimmer.trim_file makes it,
+    without KH: the bases padded into the 8,192 x 128 batch and the
+    lengths in numpy, both uploaded, and an 8,192-row int64 output brought
+    back; the mean wall ms of reps batches, each ending in a sync."""
+    import numpy as np
+
+    n, rlen = smoke.TRIM_B, bases.shape[1]
+    out = torch.zeros((n,), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        b = np.full((n, smoke.TRIM_L), 4, np.uint8)
+        b[:, :rlen] = bases[i * n:(i + 1) * n]
+        lens = np.zeros((n,), np.int32)
+        lens[:] = rlen
+        torch.from_numpy(b).to(dev), torch.from_numpy(lens).to(dev)
+        out.cpu().numpy()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def build_variants(kernels) -> dict:
@@ -328,7 +511,13 @@ def main() -> int:
                     "default]")
     ap.add_argument("--verdict-variants", action="store_true",
                     help="time the KF/KI verdict's design variants instead")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="sections to measure, of " + ",".join(PARTS)
+                    + " [all]")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts <= set(PARTS):
+        ap.error(f"--parts: unknown {sorted(parts - set(PARTS))}")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     import torch
@@ -348,6 +537,7 @@ def main() -> int:
     from bfc_tpu_torch.models import trimmer as TT
     from bfc_tpu_torch.ops import annotate as ann
     from bfc_tpu_torch.ops import kmer as kops
+    from bfc_tpu_torch.ops import route
     from bfc_tpu_torch.ops import search as srch
     from bfc_tpu_torch.ops import spectrum as spec
     from bfc_tpu_torch.ops import spectrum_dense as sdn
@@ -364,139 +554,161 @@ def main() -> int:
         smoke.write_fastq(fq, bases, quals)
         opt = Opts()
         opt.apply_genome_size(cli.parse_size("5m"))
-        t0 = time.time()
-        ds, rec["count_peak_bytes"] = _peak(torch, lambda: C.count_file_device(
-            str(fq), opt, dev, batch_reads=smoke.COUNT_B,
-            device_finalize=True))
-        rec["count_s"] = time.time() - t0
-
-        # KB on one counting batch's sorted rows
         k, l_pre = opt.k, opt.effective_l_pre()
-        carry = not sdn.ret_derivable(k, l_pre)
-        cb, cq, cl = smoke.count_batch(bases, quals, opt, dev)
-        ka = lambda: kops.kmer_stream(cb, cq, cl, k, l_pre, 0, with_ret=carry)
-        shard, keybody, arrp, ret = ka()
-        rec["ka"] = {"reads": smoke.COUNT_B, "slots": smoke.COUNT_L,
-                     "sha256": _sha(*(f for f in (shard, keybody, arrp, ret)
-                                      if f is not None)),
-                     "ms": smoke.cuda_ms(ka, CALL_REPS),
-                     "kernel_ms": smoke.graph_ms([ka], GRAPH_REPS)}
-        shard, keybody, arrp = (x.view(-1) for x in (shard, keybody, arrp))
-        perm = sdn.stable_order(shard, keybody)
-        arrp = arrp[perm]
-        high = arrp & 1
-        srt = sdn.Run(shard[perm], keybody[perm], arrp >> 1,
-                      torch.ones_like(high), high, high.to(torch.uint8),
-                      ret.view(-1)[perm] if carry else None)
-        got = sdn.run_combine(srt)
-        rec["kb"] = {"rows": len(srt), "groups": len(got),
-                     "sha256": _sha(*(f for f in got if f is not None)),
-                     "ms": smoke.cuda_median_ms(lambda: sdn.run_combine(srt),
-                                                11)}
-        del got, srt, cb, cq, cl, shard, keybody, arrp, ret, perm, high
-
-        # KC on the main path's correction batch (as the reader cuts it)
-        # of the reads after the counting batch; KD on correction batches
-        # of those reads
-        t = ds.table
-        b, q, lens = smoke.corr_batch(bases, quals, opt, dev, smoke.COUNT_B,
-                                      max(KD_READS))
-        m = next(iter(FR.iter_batches(str(fq), srch.CORRECT_BATCH,
-                                      max_bases=opt.chunk_size))).n
-        kc = lambda: ann.kcov_island(t, b[:m], lens[:m], opt.min_cov)
-        rec["kc"] = {"reads": m, "sha256": _sha(*kc()),
-                     "ms": smoke.cuda_ms(kc, CALL_REPS),
-                     "kernel_ms": smoke.graph_ms([kc], GRAPH_REPS)}
-        _, lcov, hcov, isl = ann.kcov_island(t, b, lens, opt.min_cov)
-        rec["kd"] = {}
-        if hasattr(srch, "kd_plan"):  # the persistent KD's launch plan
-            rec["kd_plan"] = srch.kd_plan()._asdict()
-        for m in KD_READS:
-            cols = tuple(x[:m] for x in (b, q, lens, lcov, hcov, isl))
-            packed, out = srch.ec1_search(t, opt, ds.mode, *cols)
-            probes = int(out[:, srch.PROBES].sum())
-            ms = smoke.cuda_median_ms(
-                lambda: srch.ec1_search(t, opt, ds.mode, *cols))
-            rec["kd"][m] = {
-                "ms": ms, "us_per_read": ms * 1e3 / m, "spec_probes": probes,
-                "g_sectors_per_s": probes * 2 / (ms * 1e-3) / 1e9,
-                "overflow": int(out[:, srch.OVERFLOW].sum()),
-                "sha256": _sha(packed, out)}
-        # the tail: KD without the 65,536-read batch's heaviest reads (by
-        # the spec's probes), and on those reads alone
-        cols = tuple(x[:65536] for x in (b, q, lens, lcov, hcov, isl))
-        out = out[:65536]
-        probes = out[:, srch.PROBES]
-        heavy = torch.argsort(probes, descending=True)[:TAIL_READS]
-        rest = torch.ones_like(probes, dtype=torch.bool)
-        rest[heavy] = False
-        rest = torch.nonzero(rest).flatten()
-        pf = probes.double()
-        rec["kd_tail"] = {
-            "reads": TAIL_READS, "probes_max": int(probes.max()),
-            "probes_p999": float(torch.quantile(pf, 0.999)),
-            "probes_mean": float(pf.mean()),
-            "heaviest_probes": probes[heavy[:8]].tolist()}
-        for name, idx in (("without_heaviest", rest), ("heaviest", heavy)):
-            sub = tuple(x[idx].contiguous() for x in cols)
-            rec["kd_tail"][f"ms_{name}"] = smoke.cuda_median_ms(
-                lambda: srch.ec1_search(t, opt, ds.mode, *sub))
-        del b, q, lens, lcov, hcov, isl, packed, out, cols, sub
-        torch.cuda.empty_cache()
-
-        # the correction pass with the tree's default batch
-        out_fq = tmp / "corrected.fq"
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        with open(out_fq, "wb") as sink:
-            w = OutputWriter(sink)
-            kw = ({} if args.correct_batch is None
-                  else {"batch_reads": args.correct_batch})
-            corr = DP.correct_file_device(str(fq), opt, ds, w, **kw)
-            w.flush()
-        torch.cuda.synchronize()
-        h = hashlib.sha256(out_fq.read_bytes()).hexdigest()
-        rec["correction"] = {
-            "batch_reads": args.correct_batch, "wall_s": time.time() - t0, "device_step_s": corr.t_device,
-            "kd_launches": kernels.KD.launches,
-            "peak_bytes_above_spectrum":
-                torch.cuda.max_memory_allocated() - base,
-            "allocated_before_bytes": base, "n_fallback": corr.n_fallback,
-            "sha256": h}
-        del ds, t
-        torch.cuda.empty_cache()
-
-        # the verdicts: the trim count's peak and fold, the main fold
         topt = Opts()
         topt.k = smoke.TRIM_K
         topt.filter_mode = True
-        info = {}
-        _, rec["trim_count_peak_bytes"] = _peak(
-            torch, lambda: TT.count_file_filter_device(
-                str(fq), topt, dev, smoke.COUNT_B, info=info,
-                device_finalize=True))
-        rec["trim_verdict"] = info["verdict"]
-        trim_fold = sdn.run_to_aggregate(info.pop("aggregate"), topt.k,
-                                         topt.effective_l_pre())
-        del info
-        agg = C.AggBuilder(opt, dev)
-        for cbases, cqok, clens, _ in C.padded_batches(str(fq), opt,
-                                                       smoke.COUNT_B):
-            agg.add(cbases, cqok, clens)
-        main_fold = sdn.run_to_aggregate(agg.fold(), k, l_pre)
-        del agg
-        torch.cuda.empty_cache()
-        rec["verdicts"] = {
-            f"b{o.bf_shift}": verdicts(torch, smoke, kernels, spec, sdn, run,
-                                       o.bf_shift, o.n_hashes)
-            for o, run in ((opt, main_fold), (topt, trim_fold))}
+        if "main" in parts:
+            main_part(rec, args, torch, smoke, kernels, FR, OutputWriter, C,
+                      DP, ann, kops, srch, sdn, opt, fq, tmp, dev, bases,
+                      quals)
+        if parts & {"verdicts", "kh"}:
+            # the trim count's peak, its fold and Bloom filter
+            info = {}
+            bloom, rec["trim_count_peak_bytes"] = _peak(
+                torch, lambda: TT.count_file_filter_device(
+                    str(fq), topt, dev, smoke.COUNT_B, info=info,
+                    device_finalize=True))
+            rec["trim_verdict"] = info["verdict"]
+            trim_fold = sdn.run_to_aggregate(info.pop("aggregate"), topt.k,
+                                             topt.effective_l_pre())
+            del info
+            if "kh" in parts:
+                rec["kh"] = streak_cases(torch, smoke, TT, bloom, topt, bases,
+                                         quals, dev)
+            del bloom
+            torch.cuda.empty_cache()
+        if parts & {"verdicts", "km"}:
+            agg = C.AggBuilder(opt, dev)
+            for cbases, cqok, clens, _ in C.padded_batches(str(fq), opt,
+                                                           smoke.COUNT_B):
+                agg.add(cbases, cqok, clens)
+            main_fold = sdn.run_to_aggregate(agg.fold(), k, l_pre)
+            del agg
+            torch.cuda.empty_cache()
+            if "km" in parts:
+                rec["km"] = route_cases(torch, smoke, kernels, route, sdn,
+                                        opt, bases, quals, dev, main_fold)
+        if "paths" in parts:
+            rec["paths"] = path_walls(smoke, Opts, fq, tmp, tree)
+        if "verdicts" in parts:
+            rec["verdicts"] = {
+                f"b{o.bf_shift}": verdicts(torch, smoke, kernels, spec, sdn,
+                                           run, o.bf_shift, o.n_hashes)
+                for o, run in ((opt, main_fold), (topt, trim_fold))}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def main_part(rec, args, torch, smoke, kernels, FR, OutputWriter, C, DP, ann,
+              kops, srch, sdn, opt, fq, tmp, dev, bases, quals) -> None:
+    """The count, KA-KD and the correction pass, into rec."""
+    t0 = time.time()
+    ds, rec["count_peak_bytes"] = _peak(torch, lambda: C.count_file_device(
+        str(fq), opt, dev, batch_reads=smoke.COUNT_B,
+        device_finalize=True))
+    rec["count_s"] = time.time() - t0
+
+    # KB on one counting batch's sorted rows
+    k, l_pre = opt.k, opt.effective_l_pre()
+    carry = not sdn.ret_derivable(k, l_pre)
+    cb, cq, cl = smoke.count_batch(bases, quals, opt, dev)
+    ka = lambda: kops.kmer_stream(cb, cq, cl, k, l_pre, 0, with_ret=carry)
+    shard, keybody, arrp, ret = ka()
+    rec["ka"] = {"reads": smoke.COUNT_B, "slots": smoke.COUNT_L,
+                 "sha256": _sha(*(f for f in (shard, keybody, arrp, ret)
+                                  if f is not None)),
+                 "ms": smoke.cuda_ms(ka, CALL_REPS),
+                 "kernel_ms": smoke.graph_ms([ka], GRAPH_REPS)}
+    shard, keybody, arrp = (x.view(-1) for x in (shard, keybody, arrp))
+    perm = sdn.stable_order(shard, keybody)
+    arrp = arrp[perm]
+    high = arrp & 1
+    srt = sdn.Run(shard[perm], keybody[perm], arrp >> 1,
+                  torch.ones_like(high), high, high.to(torch.uint8),
+                  ret.view(-1)[perm] if carry else None)
+    got = sdn.run_combine(srt)
+    rec["kb"] = {"rows": len(srt), "groups": len(got),
+                 "sha256": _sha(*(f for f in got if f is not None)),
+                 "ms": smoke.cuda_median_ms(lambda: sdn.run_combine(srt),
+                                            11)}
+    del got, srt, cb, cq, cl, shard, keybody, arrp, ret, perm, high
+
+    # KC on the main path's correction batch (as the reader cuts it)
+    # of the reads after the counting batch; KD on correction batches
+    # of those reads
+    t = ds.table
+    b, q, lens = smoke.corr_batch(bases, quals, opt, dev, smoke.COUNT_B,
+                                  max(KD_READS))
+    m = next(iter(FR.iter_batches(str(fq), srch.CORRECT_BATCH,
+                                  max_bases=opt.chunk_size))).n
+    kc = lambda: ann.kcov_island(t, b[:m], lens[:m], opt.min_cov)
+    rec["kc"] = {"reads": m, "sha256": _sha(*kc()),
+                 "ms": smoke.cuda_ms(kc, CALL_REPS),
+                 "kernel_ms": smoke.graph_ms([kc], GRAPH_REPS)}
+    _, lcov, hcov, isl = ann.kcov_island(t, b, lens, opt.min_cov)
+    rec["kd"] = {}
+    if hasattr(srch, "kd_plan"):  # the persistent KD's launch plan
+        rec["kd_plan"] = srch.kd_plan()._asdict()
+    for m in KD_READS:
+        cols = tuple(x[:m] for x in (b, q, lens, lcov, hcov, isl))
+        packed, out = srch.ec1_search(t, opt, ds.mode, *cols)
+        probes = int(out[:, srch.PROBES].sum())
+        ms = smoke.cuda_median_ms(
+            lambda: srch.ec1_search(t, opt, ds.mode, *cols))
+        rec["kd"][m] = {
+            "ms": ms, "us_per_read": ms * 1e3 / m, "spec_probes": probes,
+            "g_sectors_per_s": probes * 2 / (ms * 1e-3) / 1e9,
+            "overflow": int(out[:, srch.OVERFLOW].sum()),
+            "sha256": _sha(packed, out)}
+    # the tail: KD without the 65,536-read batch's heaviest reads (by
+    # the spec's probes), and on those reads alone
+    cols = tuple(x[:65536] for x in (b, q, lens, lcov, hcov, isl))
+    out = out[:65536]
+    probes = out[:, srch.PROBES]
+    heavy = torch.argsort(probes, descending=True)[:TAIL_READS]
+    rest = torch.ones_like(probes, dtype=torch.bool)
+    rest[heavy] = False
+    rest = torch.nonzero(rest).flatten()
+    pf = probes.double()
+    rec["kd_tail"] = {
+        "reads": TAIL_READS, "probes_max": int(probes.max()),
+        "probes_p999": float(torch.quantile(pf, 0.999)),
+        "probes_mean": float(pf.mean()),
+        "heaviest_probes": probes[heavy[:8]].tolist()}
+    for name, idx in (("without_heaviest", rest), ("heaviest", heavy)):
+        sub = tuple(x[idx].contiguous() for x in cols)
+        rec["kd_tail"][f"ms_{name}"] = smoke.cuda_median_ms(
+            lambda: srch.ec1_search(t, opt, ds.mode, *sub))
+    del b, q, lens, lcov, hcov, isl, packed, out, cols, sub
+    torch.cuda.empty_cache()
+
+    # the correction pass with the tree's default batch
+    out_fq = tmp / "corrected.fq"
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with open(out_fq, "wb") as sink:
+        w = OutputWriter(sink)
+        kw = ({} if args.correct_batch is None
+              else {"batch_reads": args.correct_batch})
+        corr = DP.correct_file_device(str(fq), opt, ds, w, **kw)
+        w.flush()
+    torch.cuda.synchronize()
+    h = hashlib.sha256(out_fq.read_bytes()).hexdigest()
+    rec["correction"] = {
+        "batch_reads": args.correct_batch, "wall_s": time.time() - t0, "device_step_s": corr.t_device,
+        "kd_launches": kernels.KD.launches,
+        "peak_bytes_above_spectrum":
+            torch.cuda.max_memory_allocated() - base,
+        "allocated_before_bytes": base, "n_fallback": corr.n_fallback,
+        "sha256": h}
+    del ds, t
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

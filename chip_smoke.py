@@ -55,7 +55,8 @@ Phases (any failure raises; nothing is caught):
 6. The trim kernels against their plain versions and the host: KF's
    verdicts on the whole trim aggregate against the exact 1-bit replay
    (spectrum_host.adjudicate_replay_np) and the sort formulation; KG on
-   the aggregate's kept rows; KH on an 8,192-read trim batch.  Then the
+   the aggregate's kept rows; KH on an 8,192-read trim batch and on 4,096
+   rows of 600 slots (timed as a call and as a kernel).  Then the
    card's -1 -k51 count of the first 80,000 reads must give the plain
    CPU run's aggregate, keep set and Bloom bits; and `-1 -k51 -b35` on
    those reads twice: from arrival 0 it must take the verdict from KF
@@ -93,9 +94,11 @@ Phases (any failure raises; nothing is caught):
    reading the counting input from stdin (`--mesh 1 -s 5m - reads.fq <
    reads.fq`, which the launcher spools once) must hash as phase 2's.
 11. KM against its plain version: by the prefix rule on the counting
-   batch's KA rows (16,384 reads x 128 slots) at R = 2, 4 and 8, and by
-   the Bloom-block rule on the main fold's (ret, arrival) rows at R = 2
-   and 8.
+   batch's KA rows (16,384 reads x 128 slots) at R = 1, 2, 3, 4, 8 and
+   256, by the Bloom-block rule on the main fold's (ret, arrival) rows at
+   R = 1, 2, 8 and 256, and by both rules on one row, two tiles and 5
+   rows, and a tile of dropped rows at R = 3 and 256; timed at R = 2 as a
+   call and as its launches alone.
 12. The main path over the mesh with the sharded table
    (BFC_TPU_SHARD_TABLE=1, `--mesh R -s 5m`) through the launcher, on the
    same reads: (a) device_count() NCCL ranks; (b) two gloo ranks sharing
@@ -124,9 +127,10 @@ Phases (any failure raises; nothing is caught):
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
 calls from Python after a warm-up (KB and KD: the median of 7 calls, each
-timed alone), the host's cost of a call included; KO-KR's, and KA's and
-KC's "kernel_ms", are the median replay of a CUDA graph of repeated calls
-(chip_probe.py), the host's cost excluded.  Each row of the kernels line
+timed alone), the host's cost of a call included; KO-KR's, and KA's,
+KC's, KH's and KM's "kernel_ms", are the median replay of a CUDA graph of
+repeated calls (chip_probe.py; KM's of its launches alone), the host's
+cost excluded.  Each row of the kernels line
 says which ("timing", "kernel_timing").
 
 The second-to-last line is {"kernels": [...]}; the last line is
@@ -768,9 +772,10 @@ def check_trim_output(out_fq: Path, n_reads: int, bases, quals, opt, bloom,
     return len(lines) // 4, kept
 
 
-def check_trim_kernels(agg, keep_path, bloom, opt, bases, dev):
+def check_trim_kernels(agg, keep_path, bloom, opt, bases, quals, dev):
     """KF, KG and KH against their plain versions on the card at the trim
-    path's shapes, and KF's verdicts against the host's exact replay.
+    path's shapes (KH also on LONG_B rows of LONG_L slots), and KF's
+    verdicts against the host's exact replay.
     Returns {name: result}."""
     b, H = opt.bf_shift, opt.n_hashes
     rows = len(agg.ret)
@@ -826,8 +831,17 @@ def check_trim_kernels(agg, keep_path, bloom, opt, bases, dev):
     args = (bloom.words, tb, lens, opt.k, b, H)
     r = dict(zip(("max_abs_err", "mismatches"), compare(
         (TT.max_streak_batch(*args),), (TT.max_streak_plain(*args),))))
+    # and LONG_L slots
+    lb, _, ll = long_batch(bases, quals, opt, dev)
+    long_args = (bloom.words, lb, ll, opt.k, b, H)
+    tally(r, (TT.max_streak_batch(*long_args),),
+          (TT.max_streak_plain(*long_args),))
     probes = TRIM_B * max(bases.shape[1] - opt.k + 1, 0)
     r["ms"] = cuda_ms(lambda: TT.max_streak_batch(*args), 20)
+    r["kernel_ms"] = graph_ms([lambda: TT.max_streak_batch(*args)],
+                              chip_probe.REPS)
+    r["kernel_ms_long"] = graph_ms([lambda: TT.max_streak_batch(*long_args)],
+                                   chip_probe.REPS)
     r["plain_ms"] = cuda_ms(lambda: TT.max_streak_plain(*args), 2)
     r["bound"] = bound(TRIM_B * (TRIM_L + 4 + 8) + probes * BLOCK,
                        probes * (OPS_KMER + OPS_BLOOM))
@@ -1232,19 +1246,33 @@ def check_sharded(fold, opt, bases, quals, dev, seed, corr_reads: int):
 
 def check_route(opt, fold, bases, quals, dev):
     """KM against its plain version on the card: the prefix rule on the
-    counting batch's KA rows at R = 2, 4 and 8, the Bloom-block rule on
-    the main fold's (ret, arrival) rows at R = 2 and 8.  Times and bounds
-    are those of the counting batch at R = 2; the fold's are kept
-    beside them.  Each time covers the wrapper's whole call, its read of
-    the counts included."""
+    counting batch's KA rows at R = 1, 2, 3, 4, 8 and 256, the Bloom-block
+    rule on the main fold's (ret, arrival) rows at R = 1, 2, 8 and 256, and
+    both rules (invalid shards dropped under each) on that batch's first
+    row, on its first two tiles and 5 rows, and with its second tile's
+    rows all invalid, at R = 3 and 256.  Times and bounds are those of the
+    counting batch at R = 2 (the fold's beside them): the wrapper's whole
+    call, its wait for the counts included, and the launches alone, a
+    CUDA graph of route.enqueue on a buffer allocated beforehand."""
     k, l_pre = opt.k, opt.effective_l_pre()
     cb, cq, cl = count_batch(bases, quals, opt, dev)
     rows = sdn.chunk_rows(cb, cq, cl, 0, k, l_pre, False)
     ret = sdn.derive_ret(fold.shard, fold.keybody, k, l_pre)
     cases = [("prefix", R, list(rows), route.PREFIX, l_pre,
-              dict(shard=rows.shard)) for R in (2, 4, 8)]
+              dict(shard=rows.shard)) for R in (1, 2, 3, 4, 8, 256)]
     cases += [("bloom", R, [ret, fold.arr], route.BLOOM, opt.bf_shift,
-               dict(ret=ret)) for R in (2, 8)]
+               dict(ret=ret)) for R in (1, 2, 8, 256)]
+    edge = [t.view(-1) for t in kops.kmer_stream(cb, cq, cl, k, l_pre, 0,
+                                                 with_ret=True)]
+    dropped = edge[0].clone()
+    dropped[route.TILE:2 * route.TILE] = kops.INVALID_SHARD
+    for cols in ([t[:1] for t in edge],
+                 [t[:2 * route.TILE + 5] for t in edge],
+                 [dropped] + edge[1:]):
+        cases += [("edge", R, cols, rid, param,
+                   dict(shard=cols[0], ret=cols[3]))
+                  for R in (3, 256) for rid, param in (
+                      (route.PREFIX, l_pre), (route.BLOOM, opt.bf_shift))]
     r = {"mismatches": 0, "max_abs_err": 0.0}
     for rule, R, cols, rid, param, kw in cases:
         got = route.route_rows(cols, R, rid, param, **kw)
@@ -1261,16 +1289,22 @@ def check_route(opt, fold, bases, quals, dev):
         N = cols[0].shape[0]
         n_cols = sum(c is not None for c in cols)
         ms = cuda_ms(lambda: route.route_rows(cols, R, rid, param, **kw), 10)
+        buf = route.buffer(N, R, n_cols, dev)
+        kernel_ms = graph_ms([lambda: route.enqueue(
+            cols, R, rid, param, kw.get("shard"), kw.get("ret"), buf)],
+            chip_probe.REPS)
+        del buf
         plain_ms = cuda_ms(
             lambda: route.route_rows_plain(cols, R, rid, param, **kw), 3)
         bnd = bound(N * 8 * n_cols + sent * 8 * (n_cols + 1),
                     N * OPS_KM_ROW)
         if rule == "prefix":
-            r.update(ms=ms, plain_ms=plain_ms, bound=bnd, rows=N,
-                     rows_sent=sent)
+            r.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                     bound=bnd, rows=N, rows_sent=sent)
         else:
-            r.update(ms_fold=ms, plain_ms_fold=plain_ms,
-                     bound_ms_fold=bnd[0], rows_fold=N)
+            r.update(ms_fold=ms, kernel_ms_fold=kernel_ms,
+                     plain_ms_fold=plain_ms, bound_ms_fold=bnd[0],
+                     rows_fold=N)
         torch.cuda.empty_cache()
     return r
 
@@ -1541,7 +1575,7 @@ def main() -> int:
         # ---- the trim kernels against their plain versions and the host
         t0 = time.time()
         res.update(check_trim_kernels(trep["aggregate"], trep["keep"], bloom,
-                                      topt, bases, dev))
+                                      topt, bases, quals, dev))
         r = res["bloom_adjudicate"]
         print(f"KF verdicts: equal to the host replay on all {r['rows']} "
               f"rows ({r['fp']} first occurrences found their bits set, "
@@ -1683,9 +1717,14 @@ def main() -> int:
         res["route_rows"] = check_route(opt, main_fold, bases, quals, dev)
         r = res["route_rows"]
         print(f"KM: equal to its plain version by the prefix rule on the "
-              f"{r['rows']}-row counting batch (R = 2, 4, 8) and by the "
-              f"Bloom-block rule on the {r['rows_fold']}-row main fold "
-              f"(R = 2, 8); {time.time() - t0:.1f} s", flush=True)
+              f"{r['rows']}-row counting batch (R = 1, 2, 3, 4, 8, 256), by "
+              f"the Bloom-block rule on the {r['rows_fold']}-row main fold "
+              f"(R = 1, 2, 8, 256) and by both on one row, a ragged tile and "
+              f"a dropped tile (R = 3, 256); at R = 2 call "
+              f"{r['ms']:.4f} ms, kernels {r['kernel_ms']:.4f} ms on the "
+              f"batch, call {r['ms_fold']:.4f} ms, kernels "
+              f"{r['kernel_ms_fold']:.4f} ms on the fold; "
+              f"{time.time() - t0:.1f} s", flush=True)
 
         # ---- KN and the sharded KC and KD (phase 13, while the fold is
         # on the card)
@@ -1826,8 +1865,10 @@ def main() -> int:
         errs = [r] + ([res33[name]] if name in res33 else [])
         mism = sum(x["mismatches"] for x in errs)
         by_path = {p: ls[name] for p, ls in paths.items()}
-        kms = (f" (kernel {r['kernel_ms']:.4f} ms, at {LONG_L} slots "
-               f"{r['kernel_ms_long']:.4f})" if "kernel_ms" in r else "")
+        kms = (f" (kernel {r['kernel_ms']:.4f} ms" if "kernel_ms" in r
+               else "") + (f", at {LONG_L} slots {r['kernel_ms_long']:.4f}"
+                           if "kernel_ms_long" in r else "") + (
+            ")" if "kernel_ms" in r else "")
         print(f"{tag} {name}: mismatches {mism}; {r['ms']:.3f} ms{kms}, "
               f"plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}); launches {by_path}", flush=True)
@@ -1861,12 +1902,13 @@ def main() -> int:
                       "rows_sent", "ms_fold", "plain_ms_fold",
                       "bound_ms_fold", "rows_fold", "cb_local", "keys",
                       "rows_by_R", "cb_local_by_R", "kernel_ms",
-                      "kernel_ms_long", "probes", "sectors",
+                      "kernel_ms_long", "kernel_ms_fold", "probes", "sectors",
                       "bound_ms_two_sectors"):
             if extra in r:
                 row[extra] = r[extra]
         if "kernel_ms" in r:
             row["kernel_timing"] = TIMING_GRAPH
+        if "kernel_ms_long" in r:
             row["long_slots"] = LONG_L
         if name == "kcov_island":
             # the sectors KC loads, at the saturated random-sector rate

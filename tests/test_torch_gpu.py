@@ -1,7 +1,8 @@
 """The eighteen CUDA kernels against their plain PyTorch versions on a
 card (KA and KC also on rows of 600 slots and on a batch that is not a
-multiple of a block's warps; KB at its tile
-edges, KD with reads deferred to its second pass), the trim path and
+multiple of a block's warps; KH also on 600 slots and on reads ending
+short of their rows; KB and KM at their tile edges, KM at 1 to 256
+ranks; KD with reads deferred to its second pass), the trim path and
 the device finalize on the card against the same
 paths on the CPU (also at -b35, KF's from arrival 0 and KI's from 2^33),
 KF and KI on a fold whose hot blocks hold over 1,000 rows, and the mesh
@@ -248,6 +249,15 @@ def test_ke_kf_kg_kh_match_plain(card, tmp_path, k):
     got = TT.max_streak_batch(*args)
     _eq((got,), (TT.max_streak_plain(*args),))
     assert int((got >> 32 > 0).sum()) > 512
+    # KH on 333 rows of 600 slots, and on reads ending short of their
+    # rows (empty, shorter than k, at chunk edges) with bases after them
+    lb, _, ll = _long_rows(b, q, 333)
+    ll[:6] = [0, k - 1, 31, 32, 33, 599]
+    args = (words, torch.from_numpy(lb).to(card),
+            torch.from_numpy(ll).to(card), k, opt.bf_shift, opt.n_hashes)
+    got = TT.max_streak_batch(*args)
+    _eq((got,), (TT.max_streak_plain(*args),))
+    assert int((got >> 32 > 0).sum()) > 300
 
 
 def test_trim_path_matches_cpu(card, tmp_path, monkeypatch):
@@ -424,10 +434,11 @@ def test_device_finalize_matches_cpu(card, tmp_path):
                                      device_finalize=True)
 
 
-@pytest.mark.parametrize("R", [2, 3, 4, 8])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 256])
 def test_km_matches_plain(card, spectrum, R):
     """KM by the prefix rule on a counting batch's KA rows, and by the
-    Bloom-block rule on the same rows' ret."""
+    Bloom-block rule on the same rows' ret; also on one row, on rows that
+    end 5 into a tile, and with a tile of dropped rows."""
     opt, ds, b, q = spectrum
     k, l_pre = opt.k, opt.effective_l_pre()
     bases = torch.from_numpy(b[:2048]).to(card)
@@ -435,13 +446,18 @@ def test_km_matches_plain(card, spectrum, R):
     lens = torch.full((2048,), b.shape[1], dtype=torch.int32, device=card)
     rows = [t.view(-1) for t in kops.kmer_stream(bases, qok, lens, k, l_pre,
                                                  7, with_ret=True)]
-    for rule, param in ((route.PREFIX, l_pre), (route.BLOOM, 24)):
-        args = (rows, R, rule, param)
-        kw = dict(shard=rows[0], ret=rows[3])
-        got = route.route_rows(*args, **kw)
-        want = route.route_rows_plain(*args, **kw)
-        assert got.counts == want.counts
-        _eq(got.cols + [got.perm], want.cols + [want.perm])
+    dropped = rows[0].clone()
+    dropped[route.TILE:2 * route.TILE] = kops.INVALID_SHARD
+    cases = [rows, [t[:1] for t in rows],
+             [t[:2 * route.TILE + 5] for t in rows], [dropped] + rows[1:]]
+    for cols in cases:
+        for rule, param in ((route.PREFIX, l_pre), (route.BLOOM, 24)):
+            args = (cols, R, rule, param)
+            kw = dict(shard=cols[0], ret=cols[3])
+            got = route.route_rows(*args, **kw)
+            want = route.route_rows_plain(*args, **kw)
+            assert got.counts == want.counts
+            _eq(got.cols + [got.perm], want.cols + [want.perm])
 
 
 def test_mesh_matches_single_device(card, tmp_path):

@@ -1,14 +1,15 @@
 """The CUDA kernels' per-read bodies, compiled for the CPU, against the
 plain PyTorch versions.
 
-csrc/*.cuh hold each kernel's per-slot and per-chunk (KA, KC), per-read
-(KD, KH), per-row (KB, KE, KG, KJ, KK; the steps of KF's and KI's
+csrc/*.cuh hold each kernel's per-slot and per-chunk (KA, KC, KH),
+per-read (KD), per-row (KB, KE, KG, KJ, KK; the steps of KF's and KI's
 block-local verdict), per-key (KL, KN), per-tile (KM) or per-query,
 per-element and per-row (the probe
 kernels KO-KR) body as __host__ __device__ functions; csrc/host_shim.cpp
 wraps them in loops over the reads, rows or tiles that one CUDA thread
-or block would take, and for KA and KC over a warp's chunks and lanes,
-building its ballot words lane by lane.  Here g++ builds
+or block would take, and for KA, KC and KH over a warp's chunks and lanes,
+building its ballot words lane by lane (KM: a block's warps and
+threads one after another).  Here g++ builds
 the shim (`-x c++ -D__host__= -D__device__=`) and ctypes loads it, so the
 kernels' logic runs on a machine without a card.  Inputs are seeded
 numpy batches and a tests/datagen.py dataset (a 12 kb genome, 100 bp
@@ -29,6 +30,7 @@ import torch
 
 from bfc_tpu_torch import kernels
 from bfc_tpu_torch.models import counter as TC
+from bfc_tpu_torch.models import refmodel as TM
 from bfc_tpu_torch.models import trimmer as TT
 from bfc_tpu_torch.ops import annotate as tann
 from bfc_tpu_torch.ops import kmer as tk
@@ -75,7 +77,9 @@ def shim(tmp_path_factory):
     lib.kn_host.argtypes = [LL, P, P, P, I, I, I, I, P, I]
     lib.kn_host.restype = ctypes.c_int
     lib.subtable_slots_host.argtypes = [LL, P, P, I, I, I, I, P, P, P, P]
-    lib.km_count_host.argtypes = [LL, I, P, P, I, I, LL, P]
+    lib.kh_steps_host.argtypes = [P, I, I]
+    lib.kh_steps_host.restype = LL
+    lib.km_count_host.argtypes = [LL, I, P, P, I, I, LL, P, P]
     lib.km_scatter_host.argtypes = [LL, I, P, P, I, I, LL] + [P] * 10
     lib.ko_host.argtypes = [LL, P, LL, P, I, P, P]
     lib.kp_row_host.argtypes = [LL, P, LL, P, I, P, P]
@@ -651,6 +655,129 @@ def test_kg_kh_bodies_match_plain(shim, trim_agg):
     assert (want[:300] >> 32 > 0).float().mean() > 0.75
 
 
+KH_KS = (17, 31, 32, 33, 51, 63)
+N_SLOTS = (31, 32, 63)    # an N there: a warp chunk's edges
+
+
+def _kh_case(k, L, seed=40):
+    """Bloom words (-b20, 4 hashes) holding every k-mer of a seeded 3 kb
+    genome, and 40 rows of L slots: genome reads with 1% errors and 0.5%
+    Ns, and edge rows: 0-2 clean reads with an N at slot 31, 32 or 63; 3 a
+    read shorter than k; 4 random bases (no hit); 5 a clean read (all
+    hits); 6 two runs of five hits split by an N (where 2k + 9 <= L), the
+    rest random; 7-8 clean reads ending at L - 1 and L // 2 + 3 with
+    genome bases after their length; 9 empty."""
+    rng = np.random.default_rng(seed + 7 * k + L)
+    G = 3000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    opt = Opts()
+    opt.k = k
+    opt.bf_shift = 20
+    gb = torch.from_numpy(genome[None, :])
+    _, _, _, ret = tk.kmer_stream_plain(
+        gb, torch.ones_like(gb, dtype=torch.bool),
+        torch.tensor([G], dtype=torch.int32), k, opt.effective_l_pre(), 0,
+        True)
+    ret = ret.view(-1)[k - 1:]
+    words = TT.bloom_build_plain(ret, torch.ones_like(ret, dtype=torch.bool),
+                                 opt.bf_shift, opt.n_hashes)
+
+    def clean(n):
+        a = int(rng.integers(0, G - n))
+        return genome[a:a + n]
+
+    B = 40
+    bases = np.stack([clean(L) for _ in range(B)])
+    bases = np.where(rng.random((B, L)) < 0.01, (bases + 1) % 4, bases)
+    bases[rng.random((B, L)) < 0.005] = 4
+    lens = np.full((B,), L, np.int32)
+    for row, slot in enumerate(N_SLOTS):
+        bases[row] = clean(L)
+        if slot < L:
+            bases[row, slot] = 4
+    bases[3] = clean(L)
+    lens[3] = min(k - 1, L)
+    # random bases, drawn again while the reference finds a hit in them
+    probe = TT.WordsProbe(TT.DeviceBloom(words, opt.bf_shift, opt.n_hashes))
+    while True:
+        bases[4] = rng.integers(0, 4, L)
+        if TM.max_streak(k, probe, "".join("ACGT"[c] for c in bases[4])) == L:
+            break
+    bases[5] = clean(L)
+    bases[6] = rng.integers(0, 4, L)
+    if 2 * k + 9 <= L:
+        a, b = rng.integers(0, G - k - 5, 2)
+        bases[6, :k + 4] = genome[a:a + k + 4]
+        bases[6, k + 4] = 4
+        bases[6, k + 5:2 * k + 9] = genome[b:b + k + 4]
+        if 2 * k + 9 < L:  # the second run ends there too
+            bases[6, 2 * k + 9] = (genome[b + k + 4] + 1) % 4
+    for row, n in ((7, L - 1), (8, L // 2 + 3)):
+        bases[row] = clean(L)
+        lens[row] = n
+    lens[9] = 0
+    return (opt, words, torch.from_numpy(bases.astype(np.uint8)),
+            torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("L", CHUNK_LS)
+@pytest.mark.parametrize("k", KH_KS)
+def test_kh_warp_body_matches_plain_and_refmodel(shim, k, L):
+    """KH's warp a read, emulated lane by lane, against max_streak_plain
+    and refmodel.max_streak (the reference's max_streak) on _kh_case."""
+    opt, words, bases, lens = _kh_case(k, L)
+    B = bases.shape[0]
+    got = torch.empty((B,), dtype=torch.int64)
+    shim.kh_host(_p(bases), _p(lens), B, L, k, _p(words), opt.bf_shift,
+                 opt.n_hashes, _p(got))
+    want = TT.max_streak_plain(words, bases, lens, k, opt.bf_shift,
+                               opt.n_hashes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    probe = TT.WordsProbe(TT.DeviceBloom(words, opt.bf_shift, opt.n_hashes))
+    seqs = ["".join("ACGTN"[c] for c in bases[r, :lens[r]].tolist())
+            for r in range(B)]
+    assert got.tolist() == [TM.max_streak(k, probe, q) for q in seqs]
+    # the edge rows are what they claim
+    m = got.tolist()
+    assert m[3] == lens[3] and m[4] == L and m[9] == 0
+    assert m[5] == ((L - k + 1) << 32 | (k - 1) if L >= k else L)
+    if 2 * k + 9 <= L:
+        assert m[6] == 5 << 32 | (2 * k + 4)  # the later of equal runs
+    for row, slot in enumerate(N_SLOTS):
+        if k <= slot < L - k:  # a run on each side of the N
+            assert m[row] >> 32 == max(slot - k + 1, L - slot - k)
+    assert sum(v >> 32 > 0 for v in m[10:]) > 5 or L < k
+
+
+def _kh_scan(hits, n):
+    """The reference's t scan (correct.c:478-497) over given hits: t gains
+    1 << 32 at a hit and restarts at i + 1 elsewhere; the largest t over
+    i < n."""
+    t = best = 0
+    for i in range(n):
+        t = t + (1 << 32) if hits[i] else i + 1
+        best = max(best, t)
+    return best
+
+
+@pytest.mark.parametrize("L", CHUNK_LS)
+def test_kh_steps_match_the_scan(shim, L):
+    """KH's steps alone, lane by lane, over seeded hit words (dense,
+    sparse, all set; bits set past the read's length too) against the
+    reference's scan, at lengths around the chunk edges and random ones."""
+    rng = np.random.default_rng(500 + L)
+    n_chunks = -(-L // 32)
+    lens = sorted({0, 1, 31, 32, 33, 63, 64, L - 1, L} & set(range(L + 1)))
+    lens += rng.integers(0, L + 1, 40).tolist()
+    for n in lens:
+        for p in (0.0, 0.3, 0.9, 1.0):
+            hits = rng.random(n_chunks * 32) < p
+            words = np.packbits(hits.reshape(-1, 32)[:, ::-1], axis=1)
+            words = words.view(">u4").reshape(-1).astype(np.uint32)
+            got = shim.kh_steps_host(words.ctypes.data, n_chunks, int(n))
+            assert got == _kh_scan(hits, n), (n, p)
+
+
 def test_ki_body_matches_plain(shim, trim_agg):
     """KI's steps with arrivals from 0 and from 2^33, the scatter in the
     natural order and reversed, at each superblock shift of _shifts,
@@ -994,31 +1121,143 @@ def test_km_plain_is_a_stable_partition(R, rule):
     assert got.cols[3] is None
 
 
-@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
-@pytest.mark.parametrize("R", [2, 3, 4, 8])
-def test_km_body_matches_plain(shim, R, rule):
-    """KM's count and scatter passes, tile by tile, around the wrapper's
-    exclusive scan, against its plain version."""
-    shard, ret, param, cols = _km_rows(R, rule)
-    N = shard.shape[0]
-    want = troute.route_rows_plain(cols, R, rule, param, shard=shard, ret=ret)
+def _km_host(shim, cols, R, rule, param, shard, ret):
+    """KM's count, scan and scatter passes as the launches run them, into
+    outputs of N rows: (off, totals, output columns, perm)."""
+    N = (shard if rule == troute.PREFIX else ret).shape[0]
     n_tiles = (N + troute.TILE - 1) // troute.TILE
-    cnt = torch.empty((R, n_tiles), dtype=torch.int64)
+    off = torch.empty((R * n_tiles,), dtype=torch.int64)
+    totals = torch.empty((R,), dtype=torch.int64)
     shim.km_count_host(N, rule, _p(shard), _p(ret), param, R, n_tiles,
-                       _p(cnt))
-    assert cnt.sum(dim=1).tolist() == want.counts
-    flat = cnt.view(-1)
-    off = torch.cumsum(flat, 0) - flat
-    n = sum(want.counts)
-    outs = [None if c is None else torch.empty((n,), dtype=torch.int64)
+                       _p(off), _p(totals))
+    outs = [None if c is None else torch.empty((N,), dtype=torch.int64)
             for c in cols]
-    perm = torch.empty((n,), dtype=torch.int64)
+    perm = torch.empty((N,), dtype=torch.int64)
+    pad = [None] * (troute.MAX_COLS - len(cols))
     shim.km_scatter_host(N, rule, _p(shard), _p(ret), param, R, n_tiles,
-                         _p(off), *(_p(c) for c in cols),
-                         *(_p(o) for o in outs), _p(perm))
-    torch.testing.assert_close(perm, want.perm, rtol=0, atol=0)
+                         _p(off), *(_p(c) for c in cols), *pad,
+                         *(_p(o) for o in outs), *pad, _p(perm))
+    return off, totals, outs, perm
+
+
+def _check_km(shim, cols, R, rule, param, shard, ret):
+    """_km_host against route_rows_plain: the totals are the counts, off
+    the exclusive scan of the tiles' counts (destination-major: each
+    (destination, tile)'s first output slot), and the leading sum(counts)
+    rows of each output the plain version's."""
+    want = troute.route_rows_plain(cols, R, rule, param, shard=shard, ret=ret)
+    off, totals, outs, perm = _km_host(shim, cols, R, rule, param, shard, ret)
+    assert totals.tolist() == want.counts
+    N = perm.shape[0]
+    dest = troute.destinations(rule, param, R, shard, ret)
+    n_tiles = (N + troute.TILE - 1) // troute.TILE
+    tile = torch.arange(N) // troute.TILE
+    kept = dest < R
+    cnt = torch.zeros((R, n_tiles), dtype=torch.int64)
+    cnt.view(-1).index_add_(0, (dest * n_tiles + tile)[kept],
+                            torch.ones((int(kept.sum()),), dtype=torch.int64))
+    flat = cnt.view(-1)
+    torch.testing.assert_close(off, torch.cumsum(flat, 0) - flat, rtol=0,
+                               atol=0)
+    n = sum(want.counts)
+    torch.testing.assert_close(perm[:n], want.perm, rtol=0, atol=0)
     for g, w in zip(outs, want.cols):
+        assert (g is None) == (w is None)
         if w is not None:
+            torch.testing.assert_close(g[:n], w, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 256])
+def test_km_body_matches_plain(shim, R, rule):
+    """KM's count pass (tile counts, totals), scan pass (a destination a
+    block, thread parts) and scatter pass (warp ranks, per-warp counts,
+    the (warp, destination) scan, the staged tile and its slots), against
+    its plain version."""
+    shard, ret, param, cols = _km_rows(R, rule)
+    want = _check_km(shim, cols, R, rule, param, shard,
+                     ret if rule == troute.BLOOM else None)
+    assert want.counts[1 % R] == 0 or R == 1
+
+
+def _km_edge(case: str, seed: int = 31):
+    """Rows for an edge case: none, one, 2 tiles + 5 rows (not a multiple
+    of the tile, the last one 5 rows), and 3 tiles whose middle one is all
+    invalid shards."""
+    N = {"empty": 0, "one": 1, "ragged": 2 * troute.TILE + 5,
+         "dropped-tile": 3 * troute.TILE}[case]
+    rng = np.random.default_rng(seed)
+    shard = rng.integers(0, 1 << 20, N).astype(np.int64)
+    shard[rng.random(N) < 0.1] = 0xFFFFFFFF
+    if case == "dropped-tile":
+        shard[troute.TILE:2 * troute.TILE] = 0xFFFFFFFF
+    ret = rng.integers(-(1 << 63), (1 << 63) - 1, N, dtype=np.int64)
+    cols = [torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, N))
+            for _ in range(2)]
+    return torch.from_numpy(shard), torch.from_numpy(ret), cols
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
+@pytest.mark.parametrize("R", [1, 3, 256])
+@pytest.mark.parametrize("case", ["empty", "one", "ragged", "dropped-tile"])
+def test_km_body_edges_match_plain(shim, case, R, rule):
+    """KM's passes at the edges of its tiles against its plain version;
+    under the Bloom rule shard drops the invalid rows too."""
+    shard, ret, cols = _km_edge(case)
+    param = 20 if rule == troute.PREFIX else 22
+    want = _check_km(shim, cols + [None], R, rule, param, shard,
+                     ret if rule == troute.BLOOM else None)
+    if case == "dropped-tile":
+        assert not bool(((want.perm >= troute.TILE)
+                         & (want.perm < 2 * troute.TILE)).any())
+    assert sum(want.counts) <= shard.shape[0]
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["prefix", "bloom"])
+@pytest.mark.parametrize("case", ["empty", "one", "ragged"])
+def test_km_wrapper_waits_once_behind_the_count(shim, monkeypatch, case,
+                                                rule):
+    """route_rows' card path with its launches run by the shim: it
+    enqueues the count and the scan (whose totals reach the pinned
+    counts), records its event, enqueues the scatter and only then waits,
+    once; its buffers, counts and perm equal the plain version's."""
+    calls = []
+
+    class Event:
+        def record(self):
+            calls.append("record")
+
+        def synchronize(self):
+            calls.append("wait")
+
+    pinned = torch.full((troute.MAX_RANKS,), -1, dtype=torch.int64)
+
+    def launch(fn, *args):
+        calls.append(fn)
+        if fn == "km_count_launch":  # the count and scan passes
+            shim.km_count_host(*args)
+        elif fn == "km_scan_launch":
+            R, _, _, totals, counts_host = args
+            ctypes.memmove(counts_host, totals, 8 * R)
+        else:
+            shim.km_scatter_host(*args)
+
+    monkeypatch.setattr(troute, "_state", lambda dev: (pinned, Event()))
+    monkeypatch.setattr(kernels.KM, "launch", launch)
+    shard, ret, cols = _km_edge(case)
+    R, param = 3, (20 if rule == troute.PREFIX else 22)
+    ret = ret if rule == troute.BLOOM else None
+    got = troute._route(cols + [None], R, rule, param, shard, ret)
+    want = troute.route_rows_plain(cols + [None], R, rule, param, shard, ret)
+    assert calls == ([] if case == "empty" else [
+        "km_count_launch", "km_scan_launch", "record", "km_scatter_launch",
+        "wait"])
+    assert got.counts == want.counts
+    for g, w in zip(got.cols + [got.perm], want.cols + [want.perm]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.is_contiguous()
             torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 

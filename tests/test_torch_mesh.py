@@ -349,6 +349,23 @@ def test_a_failed_rank_fails_the_launch(tmp_path):
     assert r.returncode != 0 and r.stdout == b""
 
 
+def test_ranks_run_the_launchers_package(tmp_path, monkeypatch):
+    """The ranks import the package the launcher belongs to, not one that
+    shadows it in the working directory: a decoy there whose rank entry
+    exits 7 must not run (the real rank fails on the missing input)."""
+    from bfc_tpu_torch.parallel import multihost
+
+    decoy = tmp_path / "bfc_tpu_torch" / "parallel"
+    decoy.mkdir(parents=True)
+    (tmp_path / "bfc_tpu_torch" / "__init__.py").write_text("")
+    (decoy / "__init__.py").write_text("")
+    (decoy / "multihost.py").write_text("import sys\nsys.exit(7)\n")
+    monkeypatch.chdir(tmp_path)
+    rc = multihost.launch(1, ["--cpu", str(tmp_path / "absent.fq")],
+                          stdout=subprocess.DEVNULL)
+    assert rc not in (0, 7)
+
+
 def test_wait_all_kills_blocked_peers():
     """One rank exits 1 while its peer would block for ten minutes: the
     launcher's wait returns non-zero within its grace and kills the peer."""

@@ -140,41 +140,190 @@ inline uint64_t bfc_exch_u64(uint64_t* p, uint64_t v) {
 }
 #endif
 
-// The entry of a (shard, keybody, payload) key in its first slot (nest 0);
-// *slot receives that slot.
-BFC_HD uint64_t cuckoo_entry(int64_t shard, int64_t keybody, int payload,
-                             int l_pre, int kb_bits, int c_bits,
-                             uint64_t* slot) {
-    *slot = posk64(shard, keybody, l_pre, kb_bits) >> (64 - c_bits);
-    return id_low(shard, keybody, l_pre, kb_bits, c_bits) << 15 |
+// --- The window build of KL and KN (csrc/cuckoo_window.cuh) -------------
+//
+// The table's 2^tb slots are cut into windows of 2^wb (wb = min(wmax,
+// tb); the card's wmax is CK_WIN_BITS).  A key's window is its first slot
+// >> wb.  The count pass counts the keys a window (into cursor) and
+// raises CK_FLAG where a row's window is below the row before it.  Rows
+// in window order also give each window's first row (start) straight
+// away: the row that first reaches a window writes its index into the
+// starts it passes (ck_reach), so no scan runs.  Where the flag is up, or
+// a row would pass more than CK_GAP windows (CK_GAPS), a scan turns the
+// counts into start and cursor instead, and with the flag up the scatter
+// writes each row's index into the records, grouped by window (rec[2j] =
+// the row at grouped position j).  The build then takes window by
+// window: the window cleared, each of its keys placed at its first slot
+// (ck_place) unless that is taken, when it is recorded for the overflow
+// (ck_overflow: its entry with the nest bit set, and its second slot) at
+// the window's own next record, so a window that reads scattered row
+// indices overwrites only records it has read; then the window is
+// written out whole, zeros included.  Last, each window's overflow
+// records run ck_insert's chains into the finished table.
+//
+// meta (int64): CK_HDR header words (the failure count, the flag, the
+// gap flag), then start[nw + 1], cursor[nw] and the windows' overflow
+// counts novf[nw].  rec (int64): [n][2].
+#define CK_WIN_BITS 12  // a window: 2^12 slots, 32 KB of shared memory
+#define CK_HDR 3
+#define CK_FAIL 0
+#define CK_FLAG 1
+#define CK_GAPS 2
+#define CK_GAP 64       // the most starts one row writes
+#define CK_BUILD_THREADS 256
+#define CK_BUILD_ROWS 4  // rows a build thread loads before it places any
+#define CK_CHUNK (CK_BUILD_THREADS * CK_BUILD_ROWS)
+
+// The layout of one build: the whole table (cb_local 0: KL) or a rank's
+// sub-table of 2^cb_local slots (KN).
+struct CkGeom {
+    int l_pre;
+    int kb_bits;
+    int c_bits;
+    int cb_local;
+};
+
+BFC_HD int ck_table_bits(const CkGeom& g) {
+    return g.cb_local ? g.cb_local : g.c_bits;
+}
+
+BFC_HD int ck_win_bits(const CkGeom& g, int wmax) {
+    int tb = ck_table_bits(g);
+    return tb < wmax ? tb : wmax;
+}
+
+BFC_HD int64_t ck_windows(const CkGeom& g, int wmax) {
+    return (int64_t)1 << (ck_table_bits(g) - ck_win_bits(g, wmax));
+}
+
+struct CkMeta {
+    int64_t* hdr;
+    int64_t* start;
+    int64_t* cursor;
+    int64_t* novf;
+};
+
+BFC_HD CkMeta ck_meta(int64_t* meta, int64_t nw) {
+    CkMeta m;
+    m.hdr = meta;
+    m.start = meta + CK_HDR;
+    m.cursor = m.start + nw + 1;
+    m.novf = m.cursor + nw;
+    return m;
+}
+
+// The first slot of (shard, keybody): the top c_bits of its position
+// key, or in its owner's sub-table the cb_local bits below the owner's.
+BFC_HD uint64_t ck_slot(const CkGeom& g, int64_t shard, int64_t keybody) {
+    uint64_t pk = posk64(shard, keybody, g.l_pre, g.kb_bits);
+    return g.cb_local ? subtable_slot(pk, g.c_bits, g.cb_local)
+                      : pk >> (64 - g.c_bits);
+}
+
+// The entry of a key in its first slot (nest 0); *slot receives the slot.
+BFC_HD uint64_t ck_entry(const CkGeom& g, int64_t shard, int64_t keybody,
+                         int payload, uint64_t* slot) {
+    *slot = ck_slot(g, shard, keybody);
+    return id_low(shard, keybody, g.l_pre, g.kb_bits, g.c_bits) << 15 |
            (uint64_t)(payload & 0x3FFF);
 }
 
-// The entry of a key in its own sub-table's first slot (nest 0).
-BFC_HD uint64_t subtable_entry(int64_t shard, int64_t keybody, int payload,
-                               int l_pre, int kb_bits, int c_bits,
-                               int cb_local, uint64_t* slot) {
-    *slot = subtable_slot(posk64(shard, keybody, l_pre, kb_bits), c_bits,
-                          cb_local);
-    return id_low(shard, keybody, l_pre, kb_bits, c_bits) << 15 |
-           (uint64_t)(payload & 0x3FFF);
+BFC_HD uint64_t ck_alt(const CkGeom& g, uint64_t qlow) {
+    return g.cb_local ? subtable_alt(qlow, g.cb_local)
+                      : cuckoo_alt(qlow, g.c_bits);
 }
 
-// KL's and KN's insert (replaces the placement rounds of
-// cuckoo_build_device, spectrum.py:543, and cuckoo_build_local, :467):
-// swap entry e into its slot; an evicted entry moves to its other slot,
-// slot ^ alt(qlow), with its nest bit flipped, so the chain needs nothing
-// but the entries.  alt is cuckoo_alt at c_bits for the whole table
-// (cb_local 0) and subtable_alt at cb_local for a sub-table.  Every
+// A thread's contiguous part [*lo, *hi) of the nw window counts, when
+// `threads` threads share them.
+BFC_HD void ck_scan_part(int64_t nw, int tid, int threads, int64_t* lo,
+                         int64_t* hi) {
+    int64_t per = (nw + threads - 1) / threads;
+    int64_t a = (int64_t)tid * per;
+    *lo = a < nw ? a : nw;
+    *hi = a + per < nw ? a + per : nw;
+}
+
+// The part's counts (in cursor) become the first grouped position of
+// each window from base on, in start, and the cursors start there; eight
+// at a time, loaded, then written.
+BFC_HD void ck_scan_write(const CkMeta& m, int64_t lo, int64_t hi,
+                          int64_t base) {
+    for (int64_t a = lo; a < hi; a += 8) {
+        int64_t c[8];
+        for (int u = 0; u < 8; u++) c[u] = a + u < hi ? m.cursor[a + u] : 0;
+        for (int u = 0; u < 8 && a + u < hi; u++) {
+            m.start[a + u] = m.cursor[a + u] = base;
+            base += c[u];
+        }
+    }
+}
+
+// Row i of n, in window w after a row in window prev (i > 0): where the
+// rows are in window order, it is the first row of every window in
+// (prev, w] (in [0, w] for row 0), and the last row also ends every
+// window after w (start[nw] = n); it writes those starts unless they are
+// more than CK_GAP, when it raises CK_GAPS and leaves them to the scan.
+BFC_HD void ck_reach(const CkMeta& m, int64_t nw, int64_t i, int64_t n,
+                     uint64_t prev, uint64_t w) {
+    if (i == 0 || w > prev) {
+        int64_t lo = i > 0 ? (int64_t)prev + 1 : 0;
+        if ((int64_t)w - lo >= CK_GAP) {
+            m.hdr[CK_GAPS] = 1;
+        } else {
+            for (int64_t v = lo; v <= (int64_t)w; v++) m.start[v] = i;
+        }
+    }
+    if (i == n - 1) {
+        if (nw - (int64_t)w > CK_GAP) {
+            m.hdr[CK_GAPS] = 1;
+        } else {
+            for (int64_t v = (int64_t)w + 1; v <= nw; v++) m.start[v] = n;
+        }
+    }
+}
+
+// The row at grouped position j: j itself while the rows are in window
+// order, else the index the scatter wrote.
+BFC_HD int64_t ck_row(const int64_t* rec, int64_t scattered, int64_t j) {
+    return scattered ? rec[2 * j] : j;
+}
+
+// Place entry e at its first slot in its window's copy win of 2^wb slots;
+// false where the slot is taken.
+BFC_HD bool ck_place(uint64_t* win, uint64_t e, uint64_t slot, int wb) {
+    uint64_t* p = win + (slot & bfc_mask(wb));
+#ifdef __CUDA_ARCH__
+    return atomicCAS((unsigned long long*)p, 0ull, (unsigned long long)e) ==
+           0ull;
+#else
+    if (*p) return false;
+    *p = e;
+    return true;
+#endif
+}
+
+// Record p of the overflow: the entry with its nest bit set, at its
+// second slot.
+BFC_HD void ck_overflow(const CkGeom& g, int64_t* rec, int64_t p,
+                        uint64_t e, uint64_t slot) {
+    rec[2 * p] = (int64_t)(e ^ (1ull << 14));
+    rec[2 * p + 1] = (int64_t)(slot ^ ck_alt(g, e >> 15));
+}
+
+// KL's and KN's overflow insert (replaces the placement rounds of
+// cuckoo_build_device, spectrum.py:543, and cuckoo_build_local, :467) of
+// record p into the finished table: swap its entry e into its slot; an
+// evicted entry moves to its other slot, slot ^ ck_alt(qlow), with its
+// nest bit flipped, so the chain needs nothing but the entries.  Every
 // exchange is atomic, so no entry is lost or doubled; returns false when
 // the chain reaches max_steps and the entry in hand is dropped.
-BFC_HD bool cuckoo_insert(uint64_t* table, uint64_t e, uint64_t slot,
-                          int c_bits, int max_steps, int cb_local = 0) {
+BFC_HD bool ck_insert(const CkGeom& g, uint64_t* table, const int64_t* rec,
+                      int64_t p, int max_steps) {
+    uint64_t e = (uint64_t)rec[2 * p], slot = (uint64_t)rec[2 * p + 1];
     for (int step = 0; step < max_steps; step++) {
         uint64_t old = BFC_ATOMIC_EXCH_U64(table + slot, e);
         if ((old & 0x3FFF) == 0) return true;
-        slot ^= cb_local ? subtable_alt(old >> 15, cb_local)
-                         : cuckoo_alt(old >> 15, c_bits);
+        slot ^= ck_alt(g, old >> 15);
         e = old ^ (1ull << 14);
     }
     return false;

@@ -4,17 +4,19 @@
 // Replaces bfc_tpu/ops/spectrum.py:cuckoo_build_local (:467), which
 // parallel/mesh.py:_build_sharded_table (:589) ran on every device of the
 // mesh.  The TPU placed a device's keys in synchronous rounds of
-// scatter-max winners; here, as in KL, one thread a key swaps its entry
-// into its first slot with atomicExch and carries any entry it evicts to
-// that entry's other slot (cuckoo.cuh:cuckoo_insert), with the sub-table's
-// slot rule and alternate hash (cuckoo.cuh:subtable_slot, subtable_alt).
-// A chain that reaches KN_MAX_STEPS drops the entry in hand and counts a
-// failure; the ranks then agree to build again one bit larger.  The
-// layout depends on the order of the exchanges; lookups do not.  The table
-// must be zeroed.
+// scatter-max winners; here KL's window build runs with the sub-table's
+// slot rule and alternate hash (cuckoo.cuh:ck_slot and ck_alt at
+// cb_local), straight into the exportable allocation: the keys grouped by
+// window of 2^12 slots, each window built in shared memory and written
+// out whole, then the keys whose first slot was taken inserted by
+// ck_insert's chains.  A chain that reaches KN_MAX_STEPS drops the
+// entry in hand and counts a failure; the ranks then agree to build again
+// one bit larger.  The layout depends on the order of the exchanges;
+// lookups do not.
 //
-// Bound: bytes.  20 bytes read a key, the 8 * 2^cb_local-byte table zeroed
-// and at least one random 32-byte sector written a key.
+// Bound: bytes.  20 bytes read a key and the 8 * 2^cb_local-byte table
+// written once (the first design also cleared it first and paid a random
+// 32-byte sector a key).
 //
 // The sub-table lives in an allocation of its own (kn_alloc, cudaMalloc),
 // never in a block of PyTorch's caching allocator: an IPC handle names the
@@ -24,36 +26,21 @@
 // access over NVLink enabled lazily; the same HBM when ranks share a card);
 // kn_close unmaps it, and only then may its owner kn_free it.  Each entry
 // point makes `device` current for its call and restores the caller's.
-#include "cuckoo.cuh"
+#include "cuckoo_window.cuh"
 
-#include <cuda_runtime.h>
 #include <string.h>
 
 #define KN_MAX_STEPS 1000
 
-__global__ void kn_kernel(long long n, const int64_t* shard,
-                          const int64_t* keybody, const int32_t* payload,
-                          int l_pre, int kb_bits, int c_bits, int cb_local,
-                          uint64_t* table, int* fail) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    uint64_t slot;
-    uint64_t e = subtable_entry(shard[i], keybody[i], payload[i], l_pre,
-                                kb_bits, c_bits, cb_local, &slot);
-    if (!cuckoo_insert(table, e, slot, c_bits, KN_MAX_STEPS, cb_local))
-        atomicAdd(fail, 1);
-}
-
+// KL's launches with the sub-table's rules (cuckoo_window.cuh:
+// ck_launch), straight into the sub-table.
 extern "C" int kn_launch(long long n, const void* shard, const void* keybody,
                          const void* payload, int l_pre, int kb_bits,
-                         int c_bits, int cb_local, void* table, void* fail,
-                         void* stream) {
-    if (n > 0)
-        kn_kernel<<<(int)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-            n, (const int64_t*)shard, (const int64_t*)keybody,
-            (const int32_t*)payload, l_pre, kb_bits, c_bits, cb_local,
-            (uint64_t*)table, (int*)fail);
-    return (int)cudaGetLastError();
+                         int c_bits, int cb_local, void* meta, void* rec,
+                         void* table, void* stream) {
+    return ck_launch(n, shard, keybody, payload,
+                     {l_pre, kb_bits, c_bits, cb_local}, meta, rec, table,
+                     KN_MAX_STEPS, stream);
 }
 
 // Runs f with `device` current, then makes the caller's device current

@@ -19,6 +19,9 @@
 #include "run_combine.cuh"
 #include "verdict.cuh"
 
+#include <algorithm>
+#include <vector>
+
 // KF and KI: the verdict's steps in the kernels' order.  The count, an
 // inclusive scan, the scatter (rows from the last when reverse is set, so
 // every segment holds its rows in the other order), then each superblock
@@ -343,34 +346,68 @@ void kk_host(long long C, const int64_t* n, const int64_t* n_high,
     }
 }
 
-// KL's inserts one key after another into a zeroed table; returns the
-// number of keys whose chain failed.
-int kl_host(long long n, const int64_t* shard, const int64_t* keybody,
-            const int32_t* payload, int l_pre, int kb_bits, int c_bits,
-            uint64_t* table, int max_steps) {
-    int fail = 0;
-    for (long long i = 0; i < n; i++) {
-        uint64_t slot;
-        uint64_t e = cuckoo_entry(shard[i], keybody[i], payload[i], l_pre,
-                                  kb_bits, c_bits, &slot);
-        fail += !cuckoo_insert(table, e, slot, c_bits, max_steps);
+// KL's and KN's window build, phase by phase as kl_launch and kn_launch
+// enqueue its kernels (their arguments, cb_local 0 for KL, without the
+// stream; then the chains' steps and the window bits wmax: the card's
+// are CK_WIN_BITS): meta cleared; for n > 0 the count (the rows in
+// order, each writing the starts it reaches), the scan where the flag or
+// the gap flag is up, and the scatter where the flag is up; the build,
+// window by window, a window's rows chunk by chunk with every row of a
+// chunk read before any is placed (the card's threads load theirs, then
+// sync where the rows come from the records); for n > 0 the overflow.
+void ck_host(long long n, const int64_t* shard, const int64_t* keybody,
+             const int32_t* payload, int l_pre, int kb_bits, int c_bits,
+             int cb_local, int64_t* meta, int64_t* rec, uint64_t* table,
+             int max_steps, int wmax) {
+    CkGeom g = {l_pre, kb_bits, c_bits, cb_local};
+    int wb = ck_win_bits(g, wmax);
+    int64_t nw = ck_windows(g, wmax), W = (int64_t)1 << wb;
+    CkMeta m = ck_meta(meta, nw);
+    std::fill(meta, meta + CK_HDR + 3 * nw + 1, 0);
+    if (n > 0) {
+        uint64_t prev = 0;
+        for (long long i = 0; i < n; i++) {
+            uint64_t w = ck_slot(g, shard[i], keybody[i]) >> wb;
+            if (i > 0 && w < prev) m.hdr[CK_FLAG] = 1;
+            ck_reach(m, nw, i, n, prev, w);
+            m.cursor[w]++;
+            prev = w;
+        }
+        if (m.hdr[CK_FLAG] || m.hdr[CK_GAPS]) {
+            ck_scan_write(m, 0, nw, 0);
+            m.start[nw] = n;
+        }
+        if (m.hdr[CK_FLAG])
+            for (long long i = 0; i < n; i++)
+                rec[2 * m.cursor[ck_slot(g, shard[i], keybody[i]) >> wb]++] =
+                    i;
     }
-    return fail;
-}
-
-// KN's inserts one key after another into a zeroed sub-table of
-// 2^(c_bits - db) entries; returns the number of keys whose chain failed.
-int kn_host(long long n, const int64_t* shard, const int64_t* keybody,
-            const int32_t* payload, int l_pre, int kb_bits, int c_bits,
-            int cb_local, uint64_t* table, int max_steps) {
-    int fail = 0;
-    for (long long i = 0; i < n; i++) {
-        uint64_t slot;
-        uint64_t e = subtable_entry(shard[i], keybody[i], payload[i], l_pre,
-                                    kb_bits, c_bits, cb_local, &slot);
-        fail += !cuckoo_insert(table, e, slot, c_bits, max_steps, cb_local);
+    std::vector<uint64_t> win(W);
+    std::vector<int64_t> row(CK_CHUNK);
+    for (int64_t b = 0; b < nw; b++) {
+        std::fill(win.begin(), win.end(), 0);
+        int64_t lo = m.start[b], hi = m.start[b + 1], novf = 0;
+        for (int64_t c0 = lo; c0 < hi; c0 += CK_CHUNK) {
+            int64_t c1 = c0 + CK_CHUNK < hi ? c0 + CK_CHUNK : hi;
+            for (int64_t j = c0; j < c1; j++)
+                row[j - c0] = ck_row(rec, m.hdr[CK_FLAG], j);
+            for (int64_t j = c0; j < c1; j++) {
+                int64_t r = row[j - c0];
+                uint64_t slot;
+                uint64_t e = ck_entry(g, shard[r], keybody[r], payload[r],
+                                      &slot);
+                if ((e & 0x3FFF) && !ck_place(win.data(), e, slot, wb))
+                    ck_overflow(g, rec, lo + novf++, e, slot);
+            }
+        }
+        m.novf[b] = novf;
+        std::copy(win.begin(), win.end(), table + (b << wb));
     }
-    return fail;
+    if (n > 0)
+        for (int64_t b = 0; b < nw; b++)
+            for (int64_t p = 0; p < m.novf[b]; p++)
+                m.hdr[CK_FAIL] += !ck_insert(g, table, rec, m.start[b] + p,
+                                             max_steps);
 }
 
 // The sub-table rules of each key: owner, s1, s2 and qlow.

@@ -7,7 +7,8 @@ process, all started together.  A stamp beside each library holds the
 hash of its sources, so a changed source rebuilds and nothing else does.
 Each C launcher enqueues on the stream it is given and returns
 cudaGetLastError(); Kernel.launch passes PyTorch's current stream, counts
-the launch and raises on a non-zero code.
+the kernels the launcher enqueues (one, or KL's and KN's five) and raises
+on a non-zero code.
 
 Importing this module builds nothing: the first launch builds, since
 building needs nvcc, which only the machine with the card has.
@@ -63,13 +64,14 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
-        """Enqueue one kernel launch on PyTorch's current stream."""
+    def launch(self, fn: str, *args, kernels: int = 1) -> None:
+        """Enqueue fn's launches on PyTorch's current stream: one kernel,
+        or `kernels` where the entry point enqueues several."""
         import torch
 
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(self.lib(), fn)(*args, stream)
-        self.launches += 1
+        self.launches += kernels
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
 
@@ -116,7 +118,7 @@ KK = Kernel("finalize_counts", {
     "kk_launch": [_LL] + [_P] * 9,
 })
 KL = Kernel("cuckoo_build", {
-    "kl_launch": [_LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "kl_launch": [_LL, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 })
 KM = Kernel("route_rows", {
     "km_count_launch": [_LL, _I, _P, _P, _I, _I, _LL, _P, _P, _P],
@@ -124,7 +126,7 @@ KM = Kernel("route_rows", {
     "km_scatter_launch": [_LL, _I, _P, _P, _I, _I, _LL] + [_P] * 11,
 })
 KN = Kernel("cuckoo_build_local", {
-    "kn_launch": [_LL, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "kn_launch": [_LL, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "kn_handle_bytes": [_P],
     "kn_alloc": [_I, _LL, _P],
     "kn_free": [_I, _P],

@@ -47,6 +47,8 @@ RECORD_BYTES = {"KF": 8, "KI": 16}  # a row's record (csrc/verdict.cuh)
 SCAN_TILE = 2048           # histogram words a scan tile (VD_SCAN_TILE)
 SB_MAX = 8                 # at most 2^8 blocks a superblock (VD_MAX_SB)
 SB_ROWS = 1024             # a superblock's rows, at most, on average
+WIN_BITS = 12              # KL's and KN's window of slots (CK_WIN_BITS)
+CK_HDR = 3                 # their counters' header words (CK_HDR)
 
 
 class SpecTable(NamedTuple):
@@ -633,6 +635,62 @@ def cuckoo_build_local_plain(shard, keybody, payload, l_pre: int,
                         max_rounds)
 
 
+def cuckoo_scratch(n: int, table_bits: int, dev):
+    """The scratch of one KL or KN build of n keys into 2^table_bits
+    slots (csrc/cuckoo.cuh): the records, int64 [n, 2] (a row index
+    while the keys are grouped by window, then an overflow entry and its
+    second slot), and the counters, int64 (the failure count, the
+    out-of-order and gap flags, then each window's first row, cursor and
+    overflow count)."""
+    return (torch.empty((n, 2), dtype=torch.int64, device=dev),
+            torch.empty((_meta_words(table_bits),), dtype=torch.int64,
+                        device=dev))
+
+
+def _meta_words(table_bits: int) -> int:
+    nw = 1 << (table_bits - min(WIN_BITS, table_bits))
+    return CK_HDR + 3 * nw + 1
+
+
+def cuckoo_enqueue(kern, geom, shard, keybody, payload, table, rec, meta):
+    """Enqueue one window build (KL, or KN with geom's cb_local) of the
+    keys into table on the current stream, with no wait: the counters
+    cleared, then five kernels: the count of keys a window, which also
+    gives each window's first row where the rows are in window order;
+    the scan and the scatter, which then return at once; the window
+    build, which writes every slot of the table; and the overflow
+    inserts (no keys: the build alone).  geom: (l_pre, kb_bits, c_bits)
+    for KL, (l_pre, kb_bits, c_bits, cb_local) for KN.  Returns the
+    failure count, a view of meta."""
+    n = shard.shape[0]
+    kern.launch("kn_launch" if kern is kernels.KN else "kl_launch", n,
+                shard.data_ptr(), keybody.data_ptr(), payload.data_ptr(),
+                *geom, meta.data_ptr(), rec.data_ptr(), table.data_ptr(),
+                kernels=5 if n else 1)
+    return meta[:1]
+
+
+def _window_build(kern, geom, shard, keybody, payload, table_bits: int,
+                  out=None, what: str = "a cuckoo table"):
+    """A card build into out, else a new table of 2^table_bits slots
+    (every slot written): (table, ok), with one wait, on the failure
+    count.  A card without room for the table and scratch raises."""
+    n, dev = shard.shape[0], shard.device
+    try:
+        table = out if out is not None else torch.empty(
+            (1 << table_bits,), dtype=torch.int64, device=dev)
+        rec, meta = cuckoo_scratch(n, table_bits, dev)
+    except torch.cuda.OutOfMemoryError as e:
+        need = 16 * n + 8 * _meta_words(table_bits) + (
+            0 if out is not None else 8 << table_bits)
+        raise RuntimeError(f"{what} of 2^{table_bits} entries needs {need} "
+                           f"device bytes, {kernels.device_free_bytes(dev)} "
+                           "free") from e
+    fail = cuckoo_enqueue(kern, geom, shard, keybody, payload, table, rec,
+                          meta)
+    return table, int(fail) == 0
+
+
 def cuckoo_build_local(shard, keybody, payload, l_pre: int, kb_bits: int,
                        c_bits: int, db: int, out=None):
     """One rank's sub-table of a ShardedTable (kernel KN): (int64
@@ -640,9 +698,10 @@ def cuckoo_build_local(shard, keybody, payload, l_pre: int, kb_bits: int,
     rank's own (their owner under the sub-table rule); ok is False when a
     key could not be placed, and every rank then builds again one bit
     larger.  out, where given, is the int64 tensor of that size to build
-    into (the exportable allocation of parallel/peer.py); it is zeroed
-    first.  shard, keybody int64 [n]; payload int32 [n], non-zero.  The
-    layout is not deterministic on the card; lookups are."""
+    into (the exportable allocation of parallel/peer.py); the build
+    writes every slot.  shard, keybody int64 [n]; payload int32 [n],
+    non-zero.  The layout is not deterministic on the card; lookups
+    are."""
     n = shard.shape[0]
     dev = shard.device
     cb_local = c_bits - db
@@ -659,19 +718,9 @@ def cuckoo_build_local(shard, keybody, payload, l_pre: int, kb_bits: int,
         if out is not None:
             table = out.copy_(table)
         return table, ok
-    if out is None:
-        need = 8 << cb_local
-        free = kernels.device_free_bytes(dev)
-        if need > free:
-            raise RuntimeError(f"a sub-table of 2^{cb_local} entries needs "
-                               f"{need} device bytes, {free} free")
-        out = torch.empty((1 << cb_local,), dtype=torch.int64, device=dev)
-    table = out.zero_()
-    fail = torch.zeros((1,), dtype=torch.int32, device=dev)
-    kernels.KN.launch("kn_launch", n, shard.data_ptr(), keybody.data_ptr(),
-                      payload.data_ptr(), l_pre, kb_bits, c_bits, cb_local,
-                      table.data_ptr(), fail.data_ptr())
-    return table, int(fail) == 0
+    return _window_build(kernels.KN, (l_pre, kb_bits, c_bits, cb_local),
+                         shard, keybody, payload, cb_local, out,
+                         "a sub-table")
 
 
 def cuckoo_build(shard, keybody, payload, k: int, l_pre: int, kb_bits: int,
@@ -691,14 +740,5 @@ def cuckoo_build(shard, keybody, payload, k: int, l_pre: int, kb_bits: int,
     if dev.type == "cpu":
         return cuckoo_build_plain(shard, keybody, payload, k, l_pre, kb_bits,
                                   c_bits)
-    need = 8 << c_bits
-    free = kernels.device_free_bytes(dev)
-    if need > free:
-        raise RuntimeError(f"a cuckoo table of 2^{c_bits} entries needs "
-                           f"{need} device bytes, {free} free")
-    table = torch.zeros((1 << c_bits,), dtype=torch.int64, device=dev)
-    fail = torch.zeros((1,), dtype=torch.int32, device=dev)
-    kernels.KL.launch("kl_launch", n, shard.data_ptr(), keybody.data_ptr(),
-                      payload.data_ptr(), l_pre, kb_bits, c_bits,
-                      table.data_ptr(), fail.data_ptr())
-    return table, int(fail) == 0
+    return _window_build(kernels.KL, (l_pre, kb_bits, c_bits), shard,
+                         keybody, payload, c_bits)

@@ -1,10 +1,11 @@
 """A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
 KD (ec1_search), KF (bloom_adjudicate), KI (first_occurrence), KM
-(route_rows) and KH (max_streak) of one tree of bfc_tpu_torch on one CUDA
-card.
+(route_rows), KH (max_streak), KL (cuckoo_build) and KN
+(cuckoo_build_local) of one tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
-                       [--correct-batch N] [--parts main,verdicts,km,kh]
+                       [--correct-batch N]
+                       [--parts main,verdicts,km,kh,kl,kn,paths]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -55,12 +56,28 @@ torch.profiler trace), with the sha256 of KM's columns, counts and perm
 and of KH's output, KM's rows sent and a call's device bytes above what
 was held, and each bound (chip_smoke.py's count); and the host side of
 one trim batch without KH (trim_host_ms).
+Then KL on the main fold's kept entries (KI's verdict at -b30, KK's
+payloads; c_bits by table_c_bits) and KN on rank 0's of them at R = 2
+(cb_local by subtable_bits, into a table allocated beforehand, as the
+mesh passes its IPC buffer), each as the mean of 20 calls and the median
+of 11 timed one at a time (host cost and the wait on the failure count
+included), as its device work alone (the median replay of a CUDA graph
+of 50 builds on buffers made beforehand: the table or scratch cleared
+and the launches, no wait), split into kernels and memsets
+("breakdown_ms", torch.profiler) and into the host's wait on the failure
+count ("wait_ms": the CPU time of aten::_local_scalar_dense a call),
+with a call's device bytes above what was held; lookups of every fold
+row (KN: through both ranks' sub-tables) against the kept payloads
+("mismatches") and their sha256, also from the keys in a seeded random
+order (call ms "ms_shuffled"); the bound (table written once, 20 bytes
+read a key) and the first design's (and a random 32-byte sector
+written a key).
 Then (paths) the walls of the paths that run KH and KM, as their reports
 give them, with the outputs' sha256: the trim path (`-1 -k51`, host
 finalize) through run_device, and the main path over two gloo ranks
 sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
 rank's KM launches.  --parts picks the sections: main (the count and
-KA-KD, the correction pass), verdicts, km, kh, paths.
+KA-KD, the correction pass), verdicts, km, kh, kl, kn, paths.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -122,7 +139,7 @@ VARIANTS = {
 # Bloom-block rule on the main fold
 KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
             ("bloom", 8))
-PARTS = ("main", "verdicts", "km", "kh", "paths")
+PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "paths")
 VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
                  ("b30", 49_804_406, 30, "random"),
                  ("b30", 49_804_406, 30, "sorted"))
@@ -339,6 +356,141 @@ def streak_cases(torch, smoke, TT, bloom, topt, bases, quals, dev) -> dict:
             "ms": smoke.cuda_ms(call, CALL_REPS),
             "ms_median": smoke.cuda_median_ms(call, MEDIAN_REPS),
             "kernel_ms": smoke.graph_ms([call], GRAPH_REPS)}
+    return out
+
+
+def _wait_ms(torch, fn, reps: int):
+    """CPU ms a call of fn spends in aten::_local_scalar_dense (int() of a
+    device tensor: the wait for the work queued before it), from a
+    torch.profiler trace of reps calls; None where none ran."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+    for e in prof.key_averages():
+        if e.key == "aten::_local_scalar_dense":
+            return e.cpu_time_total / 1e3 / reps
+    return None
+
+
+def cuckoo_work(torch, kernels, spec, kern, geom, keys, table):
+    """The device work of one KL or KN build of keys into table, on
+    scratch made here, with no wait: a function that enqueues it.  This
+    design: its counters cleared and its launches; the first design: the
+    table and the failure count cleared, one launch."""
+    s, kb, p = keys
+    if hasattr(spec, "cuckoo_enqueue"):
+        rec, meta = spec.cuckoo_scratch(s.shape[0], geom[-1] if
+                                        kern is kernels.KN else geom[2],
+                                        s.device)
+        return lambda: spec.cuckoo_enqueue(kern, geom, s, kb, p, table, rec,
+                                           meta)
+    fail = torch.zeros((1,), dtype=torch.int32, device=s.device)
+    fn = "kl_launch" if kern is kernels.KL else "kn_launch"
+
+    def work():
+        table.zero_()
+        fail.zero_()
+        kern.launch(fn, s.shape[0], s.data_ptr(), kb.data_ptr(),
+                    p.data_ptr(), *geom, table.data_ptr(), fail.data_ptr())
+    return work
+
+
+def cuckoo_cases(torch, smoke, kernels, spec, C, kops, opt, fold, which,
+                 seed: int) -> dict:
+    """KL on the main fold's kept entries and KN on rank 0's at R = 2 (as
+    the module docstring says): call, device work, breakdown, wait, peak,
+    lookups and bounds; which: the parts asked for, of kl and kn."""
+    k, l_pre = opt.k, opt.effective_l_pre()
+    kb_bits = kops.keybody_bits(k, l_pre)
+    dev = fold.shard.device
+    fp = spec.adjudicate_first_occurrence(fold.ret, fold.arr, opt.bf_shift,
+                                          opt.n_hashes)
+    payload, keep = spec.finalize_counts(fold.n, fold.n_high,
+                                         fold.first_high, fp)[:2]
+    idx = torch.nonzero(keep).flatten()
+    ks, kkb, kp = fold.shard[idx], fold.keybody[idx], payload[idx]
+    want = torch.where(keep, payload, -1).to(torch.int64)
+    del fp, payload, keep, idx
+    gen = torch.Generator().manual_seed(seed)
+    cases = []
+    if "kl" in which:
+        c_bits = C.table_c_bits(ks.shape[0], k, l_pre,
+                                opt.predicted_c_bits())
+
+        def build_kl(s, kb, p):
+            return spec.cuckoo_build(s, kb, p, k, l_pre, kb_bits, c_bits)
+
+        def look_kl(s, kb, p):
+            t, ok = build_kl(s, kb, p)
+            return spec.cuckoo_lookup_plain(
+                spec.SpecTable(t, k, l_pre, kb_bits, c_bits), fold.shard,
+                fold.keybody), ok
+        cases.append(("kl", kernels.KL, (l_pre, kb_bits, c_bits), c_bits,
+                      (ks, kkb, kp), None, build_kl, look_kl))
+    if "kn" in which:
+        owner = spec.subtable_owner(ks, kkb, l_pre, kb_bits, 1)
+        cb_local = C.subtable_bits(
+            max(torch.bincount(owner, minlength=2).tolist()), k, l_pre, 1)
+        mine = torch.nonzero(owner == 0).flatten()
+        tab = torch.empty((1 << cb_local,), dtype=torch.int64, device=dev)
+
+        def build_kn(s, kb, p, out=tab):
+            return spec.cuckoo_build_local(s, kb, p, l_pre, kb_bits,
+                                           1 + cb_local, 1, out=out)
+
+        def look_kn(s, kb, p):
+            # both ranks' sub-tables, each from its rows in this order
+            rank = spec.subtable_owner(s, kb, l_pre, kb_bits, 1)
+            subs = [build_kn(s[rank == r], kb[rank == r], p[rank == r],
+                             out=None) for r in (0, 1)]
+            st = spec.sharded_table([t for t, _ in subs], k, l_pre, kb_bits,
+                                    1)
+            return (spec.cuckoo_lookup_plain(st, fold.shard, fold.keybody),
+                    all(ok for _, ok in subs))
+        cases.append(("kn", kernels.KN,
+                      (l_pre, kb_bits, 1 + cb_local, cb_local), cb_local,
+                      (ks[mine], kkb[mine], kp[mine]), tab, build_kn,
+                      look_kn))
+        del owner, mine
+    out = {}
+    for name, kern, geom, tb, keys, tab, build, look in cases:
+        m = keys[0].shape[0]
+        call = lambda: build(*keys)
+        _, peak = _peak(torch, call)
+        kernels.reset_launches()
+        call()
+        r = {"rows": m, "table_bits": tb, "peak_bytes": peak,
+             "launches_a_call": kern.launches,
+             "ms": smoke.cuda_ms(call, CALL_REPS),
+             "ms_median": smoke.cuda_median_ms(call, MEDIAN_REPS)}
+        new, old = smoke.cuckoo_bound(m, tb)
+        r["bound_ms"], r["bound_ms_first_design"] = new[0], old[0]
+        table = (tab if tab is not None else
+                 torch.empty((1 << tb,), dtype=torch.int64, device=dev))
+        work = cuckoo_work(torch, kernels, spec, kern, geom, keys, table)
+        r["kernel_ms"] = smoke.graph_ms([work], GRAPH_REPS)
+        r["breakdown_ms"] = _breakdown(torch, call, 5)
+        r["wait_ms"] = _wait_ms(torch, call, 5)
+        del work, table
+        shuffled = tuple(x[torch.randperm(m, generator=gen).to(dev)]
+                         for x in keys)
+        r["ms_shuffled"] = smoke.cuda_ms(lambda: build(*shuffled), CALL_REPS)
+        del shuffled
+        torch.cuda.empty_cache()
+        # lookups of every fold row, from all kept keys in order and shuffled
+        order = torch.randperm(ks.shape[0], generator=gen).to(dev)
+        for tag, all_keys in (("sorted", (ks, kkb, kp)),
+                              ("shuffled", (ks[order], kkb[order],
+                                            kp[order]))):
+            got, ok = look(*all_keys)
+            r[f"mismatches_{tag}"] = int((got != want).sum()) + (not ok)
+            r[f"sha256_{tag}"] = _sha(got)
+            del got, all_keys
+            torch.cuda.empty_cache()
+        out[name] = r
     return out
 
 
@@ -578,7 +730,7 @@ def main() -> int:
                                          quals, dev)
             del bloom
             torch.cuda.empty_cache()
-        if parts & {"verdicts", "km"}:
+        if parts & {"verdicts", "km", "kl", "kn"}:
             agg = C.AggBuilder(opt, dev)
             for cbases, cqok, clens, _ in C.padded_batches(str(fq), opt,
                                                            smoke.COUNT_B):
@@ -589,6 +741,9 @@ def main() -> int:
             if "km" in parts:
                 rec["km"] = route_cases(torch, smoke, kernels, route, sdn,
                                         opt, bases, quals, dev, main_fold)
+            if parts & {"kl", "kn"}:
+                rec.update(cuckoo_cases(torch, smoke, kernels, spec, C, kops,
+                                        opt, main_fold, parts, args.seed))
         if "paths" in parts:
             rec["paths"] = path_walls(smoke, Opts, fq, tmp, tree)
         if "verdicts" in parts:

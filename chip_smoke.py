@@ -80,8 +80,10 @@ Phases (any failure raises; nothing is caught):
    (49.8M rows, -b30), the trim fold (63.1M rows, -b33) and the main fold
    at -b24, where a Bloom block holds over 1,000 rows, each against its
    plain version and the host's exact replay; KJ and KK on the main fold;
-   KL on the main fold's kept entries, compared by lookups with its plain
-   version's table.
+   KL on the main fold's kept entries, which must be in (shard, keybody)
+   order, built from them and from a seeded shuffle of them, each table
+   compared by lookups of every fold row with its plain version's; timed
+   as a call (also shuffled) and as its device work.
 10. The main path over the mesh, as `python -m bfc_tpu_torch --mesh R -s 5m
    reads.fq` runs it, through the launcher (parallel/multihost.py) on the
    same reads: (a) R = torch.cuda.device_count() ranks over NCCL (one rank
@@ -107,10 +109,13 @@ Phases (any failure raises; nothing is caught):
    launched and KL, KE and KF not; the report must say "sharded", and
    each output must hash as phase 2's.  Each rank's sub-table bytes are
    printed beside the replicated table's.
-13. KN against its plain version: the main fold's kept entries split by
-   owner at R = 2, 4 and 8, each rank's sub-table built by both, compared
-   by lookups of every kept entry and 1,000,000 seeded other keys with
-   the replicated table (KL); then KC and KD on the main path's correction
+13. KN against its plain version: the main fold's kept entries (which
+   must be in order) split by owner at R = 2, 4 and 8, each rank's
+   sub-table built by KN from its keys in order and shuffled and by the
+   plain version, compared by lookups of every kept entry and 1,000,000
+   seeded other keys with the replicated table (KL); timed at R = 2 as a
+   call, as a call into a table made beforehand (the mesh's form) and as
+   its device work; then KC and KD on the main path's correction
    batch over those R sub-tables, held in one process behind one address
    array, equal to KC and KD on the replicated table and to their plain
    versions (KD's on its first 512 reads).
@@ -128,9 +133,10 @@ The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
 calls from Python after a warm-up (KB and KD: the median of 7 calls, each
 timed alone), the host's cost of a call included; KO-KR's, and KA's,
-KC's, KH's and KM's "kernel_ms", are the median replay of a CUDA graph of
-repeated calls (chip_probe.py; KM's of its launches alone), the host's
-cost excluded.  Each row of the kernels line
+KC's, KH's, KL's, KM's and KN's "kernel_ms", are the median replay of a
+CUDA graph of repeated calls (chip_probe.py; KM's of its launches alone,
+KL's and KN's of their device work: the counters cleared and the five
+kernels), the host's cost excluded.  Each row of the kernels line
 says which ("timing", "kernel_timing").
 
 The second-to-last line is {"kernels": [...]}; the last line is
@@ -312,6 +318,16 @@ def call_peak(fn) -> int:
     fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() - base
+
+
+def cuckoo_bound(n: int, table_bits: int):
+    """KL's and KN's bound for n keys into 2^table_bits slots: what any
+    build must move, 20 bytes read a key (shard, keybody, payload) and
+    the table written once; and the first design's, which also counted
+    a random 32-byte sector written a key (its atomic exchange)."""
+    table = 8 << table_bits
+    return (bound(n * 20 + table, n * OPS_PROBE),
+            bound(n * (20 + SECTOR) + table, n * OPS_PROBE))
 
 
 def verdict_bound(rows: int, kernel: str):
@@ -925,6 +941,33 @@ def lookup(t, shard, keybody):
                       for a in range(0, shard.shape[0], step)])
 
 
+def keys_in_order(shard, keybody) -> bool:
+    """Whether int64 (shard, keybody) keys rise strictly, keybody compared
+    as the u64 it holds: the order KL's and KN's callers promise, in which
+    their scatter has nothing to do."""
+    if shard.shape[0] < 2:
+        return True
+    ukb = keybody ^ (-(1 << 63))
+    up = (shard[1:] > shard[:-1]) | ((shard[1:] == shard[:-1])
+                                     & (ukb[1:] > ukb[:-1]))
+    return bool(up.all())
+
+
+def cuckoo_graph_ms(kern, geom, keys, table_bits: int) -> float:
+    """KL's or KN's device work alone, as graph_ms times it: the
+    counters cleared and the five kernels, on a table and scratch made
+    beforehand, with no wait on the failure count."""
+    table = torch.empty((1 << table_bits,), dtype=torch.int64,
+                        device=keys[0].device)
+    rec, meta = spec.cuckoo_scratch(keys[0].shape[0], table_bits,
+                                    table.device)
+    ms = graph_ms([lambda: spec.cuckoo_enqueue(kern, geom, *keys, table, rec,
+                                               meta)], chip_probe.REPS)
+    del table, rec, meta
+    torch.cuda.empty_cache()
+    return ms
+
+
 def check_device_table(dds, hds, dev, seed):
     """The card-built spectrum against the host-built one: entries,
     histograms and mode, then both tables probed with every kept entry and
@@ -1066,34 +1109,45 @@ def check_finalize_kernels(main_fold, trim_fold, opt, topt, dev, kf):
     r["rows"] = rows
     res["finalize_counts"] = r
 
-    # KL on the kept entries, compared by lookups of every fold row
+    # KL on the kept entries, which must be in (shard, keybody) order as
+    # every caller passes them, from them and from a seeded shuffle of
+    # them, compared by lookups of every fold row
     payload, keep = kk[:2]
     ks, kkb, kp = s[keep], kb[keep], payload[keep]
     n = ks.shape[0]
+    if not keys_in_order(ks, kkb):
+        fail("the main fold's kept keys are not in (shard, keybody) order")
     kb_bits = kops.keybody_bits(k, l_pre)
     c_bits = C.table_c_bits(n, k, l_pre, opt.predicted_c_bits())
-    table, ok = spec.cuckoo_build(ks, kkb, kp, k, l_pre, kb_bits, c_bits)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(n)).to(dev)
+    keys = (ks, kkb, kp)
+    shuffled = tuple(x[perm] for x in keys)
+    built = {tag: spec.cuckoo_build(*x, k, l_pre, kb_bits, c_bits)
+             for tag, x in (("KL", keys), ("KL shuffled", shuffled))}
     torch.cuda.synchronize()
     t0 = time.time()
-    plain, pok = spec.cuckoo_build_plain(ks, kkb, kp, k, l_pre, kb_bits,
-                                         c_bits)
+    built["plain"] = spec.cuckoo_build_plain(*keys, k, l_pre, kb_bits,
+                                             c_bits)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
     want = torch.where(keep, payload, -1).to(torch.int64)
     r = {"max_abs_err": 0.0, "mismatches": 0}
-    for tab in (table, plain):
-        got = lookup(spec.SpecTable(tab, k, l_pre, kb_bits, c_bits), s, kb)
-        err, n_diff = compare((got,), (want,))
-        r["mismatches"] += n_diff
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-    if not (ok and pok):
-        fail(f"cuckoo placement failed at c_bits {c_bits} (KL {ok}, plain "
-             f"{pok})")
-    r["ms"] = cuda_ms(lambda: spec.cuckoo_build(ks, kkb, kp, k, l_pre,
-                                                kb_bits, c_bits), 5)
+    for tab, _ in built.values():
+        tally(r, (lookup(spec.SpecTable(tab, k, l_pre, kb_bits, c_bits), s,
+                         kb),), (want,))
+    oks = {tag: ok for tag, (_, ok) in built.items()}
+    if not all(oks.values()):
+        fail(f"cuckoo placement failed at c_bits {c_bits}: {oks}")
+    del built
+    r["ms"] = cuda_ms(lambda: spec.cuckoo_build(*keys, k, l_pre, kb_bits,
+                                                c_bits), 5)
+    r["ms_shuffled"] = cuda_ms(lambda: spec.cuckoo_build(
+        *shuffled, k, l_pre, kb_bits, c_bits), 5)
+    r["kernel_ms"] = cuckoo_graph_ms(kernels.KL, (l_pre, kb_bits, c_bits),
+                                     keys, c_bits)
     r["plain_ms"] = plain_ms
-    r["bound"] = bound(n * (8 + 8 + 4 + SECTOR) + (8 << c_bits),
-                       n * OPS_PROBE)
+    r["bound"], old = cuckoo_bound(n, c_bits)
+    r["bound_ms_first_design"] = old[0]
     r["rows"], r["c_bits"] = n, c_bits
     res["cuckoo_build"] = r
     return res
@@ -1166,6 +1220,8 @@ def check_sharded(fold, opt, bases, quals, dev, seed, corr_reads: int):
     mode = C._mode_from_hist(hist.cpu().numpy())
     ks, kkb, kp = fold.shard[keep], fold.keybody[keep], payload[keep]
     del payload, keep
+    if not keys_in_order(ks, kkb):
+        fail("the main fold's kept keys are not in (shard, keybody) order")
     n = ks.shape[0]
     c_bits = C.table_c_bits(n, k, l_pre, opt.predicted_c_bits())
     rep, ok = spec.cuckoo_build(ks, kkb, kp, k, l_pre, kb_bits, c_bits)
@@ -1192,30 +1248,42 @@ def check_sharded(fold, opt, bases, quals, dev, seed, corr_reads: int):
         by_rank = torch.bincount(owner, minlength=R).tolist()
         cb_local = C.subtable_bits(max(by_rank), k, l_pre, db)
         kn["rows_by_R"][R], kn["cb_local_by_R"][R] = by_rank, cb_local
-        built = {"KN": [], "plain": []}
+        built = {"KN": [], "KN shuffled": [], "plain": []}
+        rng = np.random.default_rng(seed + R)
         for r in range(R):
             idx = torch.nonzero(owner == r).flatten()
-            args = (ks[idx], kkb[idx], kp[idx], l_pre, kb_bits,
-                    db + cb_local, db)
+            mix = idx[torch.from_numpy(rng.permutation(idx.shape[0])).to(dev)]
+            geom = (l_pre, kb_bits, db + cb_local, db)
+            args = (ks[idx], kkb[idx], kp[idx], *geom)
             t, ok = spec.cuckoo_build_local(*args)
+            tm, okm = spec.cuckoo_build_local(ks[mix], kkb[mix], kp[mix],
+                                              *geom)
             torch.cuda.synchronize()
             t0 = time.time()
             tp, okp = spec.cuckoo_build_local_plain(*args)
             torch.cuda.synchronize()
             plain_ms = (time.time() - t0) * 1e3
-            if not (ok and okp):
+            if not (ok and okm and okp):
                 fail(f"sub-table placement failed at R = {R}, cb_local "
-                     f"{cb_local} (KN {ok}, plain {okp})")
+                     f"{cb_local} (KN {ok}, shuffled {okm}, plain {okp})")
             built["KN"].append(t)
+            built["KN shuffled"].append(tm)
             built["plain"].append(tp)
             if R == 2 and r == 0:
                 m = idx.shape[0]
+                new, old = cuckoo_bound(m, cb_local)
+                out = torch.empty_like(t)
                 kn.update(ms=cuda_ms(lambda: spec.cuckoo_build_local(*args),
                                      5),
+                          ms_into=cuda_ms(lambda: spec.cuckoo_build_local(
+                              *args, out=out), 5),
+                          kernel_ms=cuckoo_graph_ms(
+                              kernels.KN, (l_pre, kb_bits, db + cb_local,
+                                           cb_local), args[:3], cb_local),
                           plain_ms=plain_ms, rows=m, cb_local=cb_local,
-                          bound=bound(m * (8 + 8 + 4 + SECTOR)
-                                      + (8 << cb_local), m * OPS_PROBE))
-            del idx, args
+                          bound=new, bound_ms_first_design=old[0])
+                del out
+            del idx, mix, args
         for tabs in built.values():
             st = spec.sharded_table(tabs, k, l_pre, kb_bits, db)
             tally(kn, (lookup(st, ks, kkb), lookup(st, qs, qk)),
@@ -1709,6 +1777,15 @@ def main() -> int:
               f"{f['peak_bytes_b30']} / {f['peak_bytes_b33']} bytes, KI "
               f"{r['peak_bytes_b30']} / {r['peak_bytes_b33']}; "
               f"{time.time() - t0:.1f} s", flush=True)
+        r = res["cuckoo_build"]
+        print(f"KL: the main fold's {r['rows']} kept keys in (shard, "
+              f"keybody) order; built from them and from a shuffle of them "
+              f"into 2^{r['c_bits']} slots, every fold row looked up as in "
+              f"the plain build ({r['mismatches']} mismatches); "
+              f"{r['ms']:.3f} ms ({r['ms_shuffled']:.3f} shuffled), device "
+              f"work {r['kernel_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
+              f"(the first design's {r['bound_ms_first_design']:.4f})",
+              flush=True)
         del trim_fold
         torch.cuda.empty_cache()
 
@@ -1736,13 +1813,18 @@ def main() -> int:
         res["ec1_search"]["sharded"] = kd_sh
         print(f"KN: {kn['keys']} kept entries split by owner at R = 2, 4, 8 "
               f"(entries {kn['rows_by_R']}, cb_local {kn['cb_local_by_R']}); "
-              f"KN's and the plain version's sub-tables answer every kept "
+              f"KN's sub-tables from each rank's keys in order and "
+              f"shuffled, and the plain version's, answer every kept "
               f"entry and {ABSENT_KEYS} other keys as the replicated table "
               f"does ({kn['mismatches']} mismatches); KC and KD over the "
               f"sub-tables equal the replicated table's and their plain "
               f"versions ({kc_sh['mismatches']}, {kd_sh['mismatches']} "
               f"mismatches); at R = 2 KN {kn['ms']:.3f} ms on "
-              f"{kn['rows']} keys (plain {kn['plain_ms']:.1f} ms), KC "
+              f"{kn['rows']} keys ({kn['ms_into']:.3f} into a table made "
+              f"beforehand, device work {kn['kernel_ms']:.4f} ms, bound "
+              f"{kn['bound'][0]:.4f}, the first design's "
+              f"{kn['bound_ms_first_design']:.4f}; plain "
+              f"{kn['plain_ms']:.1f} ms), KC "
               f"{kc_sh['ms']:.3f} ms (replicated {kc_sh['ms_replicated']:.3f})"
               f", KD {kd_sh['ms']:.3f} ms (replicated "
               f"{kd_sh['ms_replicated']:.3f}); {time.time() - t0:.1f} s",
@@ -1903,7 +1985,8 @@ def main() -> int:
                       "bound_ms_fold", "rows_fold", "cb_local", "keys",
                       "rows_by_R", "cb_local_by_R", "kernel_ms",
                       "kernel_ms_long", "kernel_ms_fold", "probes", "sectors",
-                      "bound_ms_two_sectors"):
+                      "bound_ms_two_sectors", "ms_shuffled", "ms_into",
+                      "bound_ms_first_design"):
             if extra in r:
                 row[extra] = r[extra]
         if "kernel_ms" in r:

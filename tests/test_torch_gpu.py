@@ -373,7 +373,8 @@ def test_kq_matches_plain(card, variant):
 def test_ki_kj_kk_kl_match_plain(card, tmp_path, k):
     """The device finalize's kernels on a folded run: KJ (ret derived at
     k = 21, carried at 51), KI with arrivals from 0 and from 2^33 (equal
-    to KF's verdicts), KK, and KL compared by lookups."""
+    to KF's verdicts), KK, and KL compared by lookups, also from shuffled
+    keys and at load 0.4."""
     b, q = _reads()
     fq = _write_fq(tmp_path / "reads.fq", b, q)
     opt = Opts()
@@ -411,6 +412,28 @@ def test_ki_kj_kk_kl_match_plain(card, tmp_path, k):
         spec.SpecTable(table, k, l_pre, kb_bits, c_bits), run.shard,
         run.keybody)
     _eq((got,), (torch.where(keep, payload, -1).to(torch.int64),))
+    # KL from shuffled keys, and at load 0.4 (c_bits forced below
+    # table_c_bits' where qlow still fits, a seeded sample of the kept
+    # keys filling 0.4 of the table) from sorted and shuffled keys, each
+    # launching its five kernels
+    rows = torch.nonzero(keep).flatten()
+    n = len(rows)
+    low = max(int(np.log2(n / 0.4)), 8, l_pre + kb_bits - 49)
+    rng = np.random.default_rng(k)
+    sample = np.sort(rng.choice(n, min(n, int(0.4 * (1 << low))),
+                                replace=False))
+    for cb, sel in ((c_bits, rng.permutation(n)), (low, sample),
+                    (low, rng.permutation(sample))):
+        sel = torch.from_numpy(sel).to(card)
+        kernels.reset_launches()
+        table, ok = spec.cuckoo_build(shard[sel], keybody[sel], kept[sel], k,
+                                      l_pre, kb_bits, cb)
+        assert ok and kernels.KL.launches == 5
+        want = torch.full_like(got, -1)
+        want[rows[sel]] = kept[sel].to(torch.int64)
+        _eq((spec.cuckoo_lookup_plain(
+            spec.SpecTable(table, k, l_pre, kb_bits, cb), run.shard,
+            run.keybody),), (want,))
 
 
 def test_device_finalize_matches_cpu(card, tmp_path):
@@ -483,37 +506,58 @@ def test_mesh_matches_single_device(card, tmp_path):
         assert r.stdout == want, backend
 
 
-def _subtables(ds, db, card, kernel: bool):
+def _subtables(ds, db, card, kernel: bool, order: str = "sorted",
+               load: str = "default"):
     """The spectrum's entries split by owner into 2^db sub-tables on the
-    card, built by KN (kernel) or its plain version: a ShardedTable."""
+    card, built by KN (kernel) or its plain version from each rank's
+    keys in order or shuffled: (a ShardedTable, the entries built).  At
+    load "0.4" cb_local is forced below subtable_bits' and each rank
+    keeps a seeded sample of its keys, in order, filling 0.4 of a
+    sub-table."""
     k, l_pre, kb_bits = ds.k, ds.l_pre, ds.kb_bits
     shard, keybody, payload = (torch.from_numpy(np.asarray(c).astype(
         np.int64)).to(card) for c in ds.compact_entries())
     payload = payload.to(torch.int32)
     owner = spec.subtable_owner(shard, keybody, l_pre, kb_bits, db)
-    cb_local = TC.subtable_bits(int(torch.bincount(owner).max()), k, l_pre,
-                                db)
+    most = int(torch.bincount(owner).max())
+    cb_local = TC.subtable_bits(most, k, l_pre, db)
+    cap = None
+    if load == "0.4":
+        cb_local = max(int(np.log2(most / 0.4)), 8, l_pre + kb_bits - 49 - db)
+        cap = int(0.4 * (1 << cb_local))
+    rng = np.random.default_rng(db)
+    built = torch.zeros_like(owner, dtype=torch.bool)
     subs = []
     for r in range(1 << db):
-        sel = owner == r
-        args = (shard[sel], keybody[sel], payload[sel], l_pre, kb_bits,
+        idx = torch.nonzero(owner == r).flatten()
+        if cap is not None and cap < len(idx):
+            idx = idx[torch.from_numpy(np.sort(rng.choice(
+                len(idx), cap, replace=False))).to(card)]
+        built[idx] = True
+        if order == "shuffled":
+            idx = idx[torch.from_numpy(rng.permutation(len(idx))).to(card)]
+        args = (shard[idx], keybody[idx], payload[idx], l_pre, kb_bits,
                 db + cb_local, db)
         t, ok = (spec.cuckoo_build_local(*args) if kernel
                  else spec.cuckoo_build_local_plain(*args))
-        assert ok
+        assert ok, f"{'KN' if kernel else 'plain'}, rank {r} of {1 << db}"
         subs.append(t)
-    return spec.sharded_table(subs, k, l_pre, kb_bits, db)
+    return spec.sharded_table(subs, k, l_pre, kb_bits, db), built
 
 
+@pytest.mark.parametrize("load", ["default", "0.4"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
 @pytest.mark.parametrize("db", [1, 3])
-def test_kn_matches_plain(card, spectrum, db):
-    """KN's sub-tables and its plain version's answer every kept entry
-    and 100,000 seeded keys as the replicated table does."""
+def test_kn_matches_plain(card, spectrum, db, order, load):
+    """KN's sub-tables and its plain version's, from each rank's keys in
+    order or shuffled, at subtable_bits' load or at 0.4, answer every
+    entry built (others -1) and 100,000 seeded keys as the replicated
+    table does; each KN call launches its five kernels."""
     opt, ds, b, q = spectrum
     kernels.reset_launches()
-    got = _subtables(ds, db, card, kernel=True)
-    assert kernels.KN.launches == 1 << db
-    want_t = _subtables(ds, db, card, kernel=False)
+    got, built = _subtables(ds, db, card, True, order, load)
+    assert kernels.KN.launches == 5 << db
+    want_t, _ = _subtables(ds, db, card, False, order, load)
     shard, keybody, _ = (torch.from_numpy(np.asarray(c).astype(np.int64))
                          for c in ds.compact_entries())
     rng = np.random.default_rng(db)
@@ -522,6 +566,7 @@ def test_kn_matches_plain(card, spectrum, db):
     qk = torch.cat([keybody, torch.from_numpy(rng.integers(
         0, 1 << min(ds.kb_bits, 62), 100_000))]).to(card)
     want = spec.cuckoo_lookup_plain(ds.table, qs, qk)
+    want[:len(shard)] = torch.where(built, want[:len(shard)], -1)
     for t in (got, want_t):
         _eq((spec.cuckoo_lookup_plain(t, qs, qk),), (want,))
 
@@ -531,7 +576,7 @@ def test_sharded_kc_kd_match_replicated(card, spectrum, db):
     """KC and KD reading R = 2^db sub-tables through the address array, in
     one process, against the replicated table and their plain versions."""
     opt, ds, b, q = spectrum
-    t = _subtables(ds, db, card, kernel=True)
+    t, _ = _subtables(ds, db, card, kernel=True)
     bases = torch.from_numpy(b[:256]).to(card)
     qf = torch.from_numpy(q[:256] >= 33 + opt.q).to(card)
     lens = torch.full((256,), b.shape[1], dtype=torch.int32, device=card)

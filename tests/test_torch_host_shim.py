@@ -72,10 +72,7 @@ def shim(tmp_path_factory):
     lib.ki_host.restype = LL
     lib.kj_host.argtypes = [LL, P, P, I, I, P]
     lib.kk_host.argtypes = [LL] + [P] * 8
-    lib.kl_host.argtypes = [LL, P, P, P, I, I, I, P, I]
-    lib.kl_host.restype = ctypes.c_int
-    lib.kn_host.argtypes = [LL, P, P, P, I, I, I, I, P, I]
-    lib.kn_host.restype = ctypes.c_int
+    lib.ck_host.argtypes = [LL, P, P, P, I, I, I, I, P, P, P, I, I]
     lib.subtable_slots_host.argtypes = [LL, P, P, I, I, I, I, P, P, P, P]
     lib.kh_steps_host.argtypes = [P, I, I]
     lib.kh_steps_host.restype = LL
@@ -95,7 +92,7 @@ def shim(tmp_path_factory):
     for f in (lib.ka_host, lib.kc_host, lib.kd_host, lib.ke_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.kj_host,
               lib.kk_host, lib.km_count_host, lib.km_scatter_host,
-              lib.subtable_slots_host):
+              lib.subtable_slots_host, lib.ck_host):
         f.restype = None
     return lib
 
@@ -935,44 +932,251 @@ def test_kk_body_matches_plain(shim, trim_agg):
     assert int(hist[255]) > 0 and int(hist_high[63]) > 0
 
 
-def test_kl_inserts_match_plain_lookups(shim, trim_agg):
-    """KL's inserts, one key after another, build a table whose lookups
-    equal the plain build's: every kept row its payload, every other row
-    -1 (the layouts differ)."""
-    opt, run, ret, _, _, _ = trim_agg
-    k, l_pre = opt.k, opt.effective_l_pre()
-    kb_bits = tk.keybody_bits(k, l_pre)
-    fp = tspec.adjudicate_first_occurrence_plain(ret, run.arr, opt.bf_shift,
-                                                 opt.n_hashes)
-    payload, keep, _, _ = tspec.finalize_counts_plain(
-        run.n, run.n_high, run.first_high, fp)
-    shard, keybody, kept = run.shard[keep], run.keybody[keep], payload[keep]
-    c_bits = TC.table_c_bits(len(shard), k, l_pre)
-    assert c_bits <= 32
-    table = torch.zeros((1 << c_bits,), dtype=torch.int64)
-    assert shim.kl_host(len(shard), _p(shard), _p(keybody), _p(kept), l_pre,
-                        kb_bits, c_bits, _p(table), 1000) == 0
-    plain, ok = tspec.cuckoo_build_plain(shard, keybody, kept, k, l_pre,
-                                         kb_bits, c_bits)
+CK_WIN_BITS = 12  # csrc/cuckoo.cuh: the card's window of slots
+CK_MAX_STEPS = 1000  # KL_MAX_STEPS, KN_MAX_STEPS
+CK_GAP = 64       # the most window starts one row of the count writes
+
+
+def _ck_build(shim, shard, keybody, payload, l_pre, kb_bits, c_bits,
+              cb_local=0, wmax=CK_WIN_BITS):
+    """KL's (cb_local 0) or KN's window build, phase by phase by g++, into
+    a table and scratch of garbage (every slot must be written, and the
+    counters are cleared first): (table, ok, the windows' overflow
+    counts, the out-of-order flag)."""
+    n = shard.shape[0]
+    tb = cb_local or c_bits
+    nw = 1 << (tb - min(wmax, tb))
+    rec = torch.full((n, 2), -7, dtype=torch.int64)
+    meta = torch.full((tspec.CK_HDR + 3 * nw + 1,), -5, dtype=torch.int64)
+    table = torch.full((1 << tb,), -1, dtype=torch.int64)
+    shim.ck_host(n, _p(shard), _p(keybody), _p(payload), l_pre, kb_bits,
+                 c_bits, cb_local, _p(meta), _p(rec), _p(table),
+                 CK_MAX_STEPS, wmax)
+    assert not bool((table == -1).any()), "a slot was not written"
+    return (table, int(meta[0]) == 0, meta[tspec.CK_HDR + 2 * nw + 1:],
+            (int(meta[1]), int(meta[2])))
+
+
+def _ck_layout(k):
+    o = Opts()
+    o.k = k
+    l_pre = o.effective_l_pre()
+    return l_pre, tk.keybody_bits(k, l_pre)
+
+
+def _ck_keys(k, n, seed):
+    """n distinct seeded keys at k, sorted by (shard, keybody) as every
+    caller passes them, with non-zero payloads."""
+    l_pre, kb_bits = _ck_layout(k)
+    rng = np.random.default_rng(seed)
+    shard = rng.integers(0, 1 << l_pre, n)
+    keybody = rng.integers(0, 1 << min(kb_bits, 63), n,
+                           dtype=np.uint64)
+    order = np.lexsort((keybody, shard))
+    shard, keybody = shard[order], keybody[order]
+    fresh = np.ones(n, bool)
+    fresh[1:] = (shard[1:] != shard[:-1]) | (keybody[1:] != keybody[:-1])
+    shard, keybody = shard[fresh], keybody[fresh]
+    payload = rng.integers(1, 1 << 14, len(shard)).astype(np.int32)
+    return (torch.from_numpy(shard), torch.from_numpy(keybody.view(
+        np.int64)), torch.from_numpy(payload))
+
+
+# case: (k, keys, kept share, c_bits or None for table_c_bits, window bits
+# of the phases, the only windows of 2^12 slots whose keys are kept);
+# c_bits 11-13 put the table's edge at the card's window minus one, at it
+# and past it; "gap" leaves 196 windows empty between two
+CK_CASES = {
+    **{f"k{k}": (k, 3000, 0.7, None, CK_WIN_BITS, None)
+       for k in (17, 21, 33, 51, 63)},
+    "load0.4": (21, 4000, 0.8192, 13, CK_WIN_BITS, None),
+    **{f"edge{cb}": (21, int(0.3 * (1 << cb)) + 40, 0.97, cb, CK_WIN_BITS,
+                     None) for cb in (11, 12, 13)},
+    "one-window": (21, 20000, 1.0, 14, CK_WIN_BITS, (1,)),
+    "gap": (21, 20000, 1.0, 20, CK_WIN_BITS, (3, 200)),
+    "min-table": (21, 120, 0.7, 8, CK_WIN_BITS, None),
+    "small-windows": (21, 3000, 0.95, 13, 4, None),
+    "empty": (21, 0, 1.0, 8, CK_WIN_BITS, None),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _ck_case(case):
+    """(keys, kept mask, c_bits, window bits, each key's expected lookup,
+    the plain build's lookups of every key)."""
+    k, n, share, c_bits, wmax, window = CK_CASES[case]
+    l_pre, kb_bits = _ck_layout(k)
+    shard, keybody, payload = _ck_keys(k, n, seed=n + k)
+    if window is not None:  # only the keys whose first slot is in them
+        sel = torch.isin(_first_slots(shard, keybody, l_pre, kb_bits, c_bits)
+                         >> CK_WIN_BITS, torch.tensor(window))
+        shard, keybody, payload = shard[sel], keybody[sel], payload[sel]
+        shard, keybody, payload = (x[:1200] for x in (shard, keybody,
+                                                       payload))
+    keep = torch.from_numpy(np.random.default_rng(n).random(
+        shard.shape[0]) < share)
+    if c_bits is None:
+        c_bits = TC.table_c_bits(int(keep.sum()), k, l_pre)
+    want = torch.where(keep, payload, -1).to(torch.int64)
+    plain, ok = tspec.cuckoo_build_plain(shard[keep], keybody[keep],
+                                         payload[keep], k, l_pre, kb_bits,
+                                         c_bits)
     assert ok
-    want = tspec.cuckoo_lookup_plain(
-        tspec.SpecTable(plain, k, l_pre, kb_bits, c_bits), run.shard,
-        run.keybody)
     got = tspec.cuckoo_lookup_plain(
-        tspec.SpecTable(table, k, l_pre, kb_bits, c_bits), run.shard,
-        run.keybody)
+        tspec.SpecTable(plain, k, l_pre, kb_bits, c_bits), shard, keybody)
+    return (shard, keybody, payload), keep, c_bits, wmax, want, got
+
+
+def _first_slots(shard, keybody, l_pre, kb_bits, c_bits):
+    """Each key's first slot in a table of 2^c_bits."""
+    return tspec.srl(tspec._posk64(shard, keybody, l_pre, kb_bits),
+                     64 - c_bits)
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("case", sorted(CK_CASES))
+def test_kl_phased_build_matches_plain_lookups(shim, case, order):
+    """KL's window build by g++ (count, scatter, window by window with
+    the overflow recorded, then the overflow inserts) from the kept keys,
+    sorted or shuffled, writes every slot, and its lookups of every key
+    equal the plain build's: a kept key its payload, every other -1 (the
+    layouts differ).  Sorted keys never raise the flag; shuffled ones
+    always do and are grouped by window."""
+    (shard, keybody, payload), keep, c_bits, wmax, want, plain = \
+        _ck_case(case)
+    k = CK_CASES[case][0]
+    l_pre, kb_bits = _ck_layout(k)
+    torch.testing.assert_close(plain, want, rtol=0, atol=0)
+    idx = torch.nonzero(keep).flatten()
+    if order == "shuffled":
+        idx = idx[torch.from_numpy(np.random.default_rng(3).permutation(
+            idx.shape[0]))]
+    table, ok, novf, (flag, gaps) = _ck_build(
+        shim, shard[idx], keybody[idx], payload[idx], l_pre, kb_bits, c_bits,
+        wmax=wmax)
+    assert ok
+    s1 = _first_slots(shard[idx], keybody[idx], l_pre, kb_bits, c_bits)
+    win = s1 >> min(wmax, c_bits)
+    assert flag == int(bool((win[1:] < win[:-1]).any()))
+    assert flag == (order == "shuffled" and int(win.unique().numel()) > 1)
+    # the starts come from the count unless a row would write more than
+    # CK_GAP of them: then from the scan, as where the flag is up
+    if win.numel():
+        nw = 1 << (c_bits - min(wmax, c_bits))
+        step = torch.cat([win[:1] + 1, (win[1:] - win[:-1]).clamp(min=0),
+                          nw - win[-1:]])
+        assert gaps == int(bool((step > CK_GAP).any()))
+    if order == "sorted":  # only the gap case's starts need the scan
+        assert gaps == (case == "gap")
+    got = tspec.cuckoo_lookup_plain(
+        tspec.SpecTable(table, k, l_pre, kb_bits, c_bits), shard, keybody)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    torch.testing.assert_close(got, torch.where(keep, payload, -1).to(
-        torch.int64), rtol=0, atol=0)
-    # a full table: 600 keys cannot sit in 512 slots
-    small = torch.zeros((512,), dtype=torch.int64)
-    assert shim.kl_host(600, _p(shard), _p(keybody), _p(kept), l_pre,
-                        kb_bits, 9, _p(small), 1000) > 0
+    # a key overflows where an earlier one took its first slot
+    assert int(novf.sum()) == idx.shape[0] - int(s1.unique().numel())
+    if case == "empty":
+        assert not bool(table.any())
+
+
+def test_kl_phased_build_reports_a_full_table(shim):
+    """600 keys cannot sit in 512 slots: ok is False, as the plain
+    build's."""
+    shard, keybody, payload = _ck_keys(21, 600, seed=6)
+    l_pre, kb_bits = _ck_layout(21)
+    _, ok = tspec.cuckoo_build_plain(shard, keybody, payload, 21, l_pre,
+                                     kb_bits, 9)
+    assert not ok
+    _, ok, novf, _ = _ck_build(shim, shard, keybody, payload, l_pre,
+                               kb_bits, 9)
+    assert not ok and int(novf.sum()) >= 600 - 512
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("db", [1, 2, 3])
+def test_kn_phased_build_matches_plain_lookups(shim, db, order):
+    """KN's window build by g++ into each rank's sub-table (the sub-table
+    slot rule and alternate hash) from its kept keys, sorted or shuffled:
+    the 2^db sub-tables answer every key as the plain sub-tables do."""
+    (shard, keybody, payload), keep, _, _, want, _ = _ck_case("k21")
+    k = 21
+    l_pre, kb_bits = _ck_layout(k)
+    owner = tspec.subtable_owner(shard, keybody, l_pre, kb_bits, db)
+    counts = torch.bincount(owner[keep], minlength=1 << db)
+    cb_local = TC.subtable_bits(int(counts.max()), k, l_pre, db)
+    rng = np.random.default_rng(db)
+    subs, plains = [], []
+    for r in range(1 << db):
+        idx = torch.nonzero(keep & (owner == r)).flatten()
+        if order == "shuffled":
+            idx = idx[torch.from_numpy(rng.permutation(idx.shape[0]))]
+        cols = (shard[idx], keybody[idx], payload[idx])
+        t, ok, _, _ = _ck_build(shim, *cols, l_pre, kb_bits, db + cb_local,
+                                cb_local)
+        assert ok
+        subs.append(t)
+        t, ok = tspec.cuckoo_build_local_plain(*cols, l_pre, kb_bits,
+                                               db + cb_local, db)
+        assert ok
+        plains.append(t)
+    for tabs in (subs, plains):
+        got = tspec.cuckoo_lookup_plain(
+            tspec.sharded_table(tabs, k, l_pre, kb_bits, db), shard, keybody)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["sorted", "shuffled", "empty"])
+@pytest.mark.parametrize("kern", ["KL", "KN"])
+def test_ck_wrapper_enqueues_one_build(shim, monkeypatch, kern, case):
+    """The card path of cuckoo_build and cuckoo_build_local with the shim
+    doing its launch: one entry point (five kernels, the build alone for
+    no keys) into a table and scratch of garbage, then one read of the
+    failure count; lookups as the plain version's."""
+    (shard, keybody, payload), keep, c_bits, _, want, _ = _ck_case("k21")
+    l_pre, kb_bits = _ck_layout(21)
+    idx = torch.nonzero(keep).flatten()
+    if case == "shuffled":
+        idx = idx.flip(0)
+    if case == "empty":
+        idx = idx[:0]
+        want = torch.full_like(want, -1)
+    calls = []
+    table = torch.full((1 << c_bits,), -1, dtype=torch.int64)
+    geom = (l_pre, kb_bits, c_bits) if kern == "KL" else (
+        l_pre, kb_bits, c_bits, c_bits)
+
+    def launch(fn, *args, kernels=1):
+        calls.append((fn, kernels))
+        if kern == "KL":  # the shim takes cb_local, 0 for KL
+            args = args[:7] + (0,) + args[7:]
+        shim.ck_host(*args, CK_MAX_STEPS, CK_WIN_BITS)
+
+    scratch = tspec.cuckoo_scratch
+    monkeypatch.setattr(getattr(kernels, kern), "launch", launch)
+    monkeypatch.setattr(tspec, "cuckoo_scratch", lambda *a: tuple(
+        t.fill_(-3) for t in scratch(*a)))
+    got_t, ok = tspec._window_build(getattr(kernels, kern), geom,
+                                    shard[idx], keybody[idx], payload[idx],
+                                    c_bits, out=table)
+    assert ok and got_t is table
+    assert calls == [(f"{kern.lower()}_launch", 1 if case == "empty" else 5)]
+    st = (tspec.SpecTable(table, 21, l_pre, kb_bits, c_bits) if kern == "KL"
+          else tspec.sharded_table([table], 21, l_pre, kb_bits, 0))
+    torch.testing.assert_close(tspec.cuckoo_lookup_plain(st, shard, keybody),
+                               want, rtol=0, atol=0)
+
+
+def test_ck_constants_match_the_header():
+    """The wrapper's window and header sizes are cuckoo.cuh's."""
+    src = (CSRC / "cuckoo.cuh").read_text()
+    for name, value in (("CK_WIN_BITS", tspec.WIN_BITS),
+                        ("CK_HDR", tspec.CK_HDR), ("CK_GAP", CK_GAP)):
+        assert re.search(rf"#define {name} {value}\b", src), name
+    assert tspec.WIN_BITS == CK_WIN_BITS
 
 
 def _subtables(shim, ds, db):
     """The spectrum's entries split by owner into 2^db sub-tables, each
-    built by KN's inserts (host body): a ShardedTable, and the cb_local."""
+    built by KN's window build (host bodies), half of them from their
+    keys in reverse: a ShardedTable, and the cb_local."""
     k, l_pre, kb_bits = ds.k, ds.l_pre, ds.kb_bits
     shard, keybody, payload = (torch.from_numpy(np.asarray(c).astype(
         np.int64)) for c in ds.compact_entries())
@@ -982,12 +1186,13 @@ def _subtables(shim, ds, db):
     cb_local = TC.subtable_bits(int(counts.max()), k, l_pre, db)
     subs = []
     for r in range(1 << db):
-        sel = owner == r
-        t = torch.zeros((1 << cb_local,), dtype=torch.int64)
-        assert shim.kn_host(int(sel.sum()), _p(shard[sel].contiguous()),
-                            _p(keybody[sel].contiguous()),
-                            _p(payload[sel].contiguous()), l_pre, kb_bits,
-                            db + cb_local, cb_local, _p(t), 1000) == 0
+        idx = torch.nonzero(owner == r).flatten()
+        if r % 2:
+            idx = idx.flip(0)
+        t, ok, _, _ = _ck_build(shim, shard[idx], keybody[idx],
+                                payload[idx], l_pre, kb_bits, db + cb_local,
+                                cb_local)
+        assert ok
         subs.append(t)
     return tspec.sharded_table(subs, k, l_pre, kb_bits, db), cb_local
 
@@ -1020,9 +1225,9 @@ def test_subtable_rules_match_plain(shim, db):
             assert bool((replicated != want[2]).any())
 
 
-@pytest.mark.parametrize("db", [1, 3])
+@pytest.mark.parametrize("db", [1, 2, 3])
 def test_kn_kc_kd_bodies_over_subtables(shim, spectrum, db):
-    """KN's inserts per owner give sub-tables that answer as the plain
+    """KN's window build per owner gives sub-tables that answer as the plain
     sharded build's and the replicated table for every key of the batch;
     the KC and KD bodies reading them through the address array equal
     their plain versions and the replicated table's results."""

@@ -333,17 +333,56 @@ void kj_host(long long C, const int64_t* shard, const int64_t* keybody,
     for (long long i = 0; i < C; i++) kj_row(i, shard, keybody, k, l_pre, ret);
 }
 
-// hist and hist_high must be zeroed.
+// KK as kk_launch runs it on `blocks` blocks of KK_WARPS warps: the plan
+// (kk_plan); each warp's tiles, lane by lane through the warp's staging
+// arrays, each step for every lane before the next (the card's
+// __syncwarp); the rows outside the tiles one a thread; each warp
+// tallying into its own sub-histogram; then each block's flush.  hist
+// and hist_high must be zeroed.
 void kk_host(long long C, const int64_t* n, const int64_t* n_high,
              const uint8_t* first_high, const uint8_t* fp, int32_t* payload,
-             uint8_t* keep, int64_t* hist, int64_t* hist_high) {
-    for (long long i = 0; i < C; i++) {
-        int32_t p = kk_row(i, n, n_high, first_high, fp, payload, keep);
-        if (p) {
-            hist[p & 255]++;
-            hist_high[p >> 8]++;
+             uint8_t* keep, int64_t* hist, int64_t* hist_high, int blocks) {
+    KkPlan plan = kk_plan(C, n, n_high, first_high, fp, payload, keep);
+    std::vector<uint32_t> sub(KK_WARPS * KK_BINS);
+    std::vector<int32_t> spl(KK_TILE);
+    std::vector<uint8_t> sfp(KK_TILE), sfh(KK_TILE), skp(KK_TILE);
+    const long long rest = C - plan.tiles * KK_TILE;
+    for (int blk = 0; blk < blocks; blk++) {
+        std::fill(sub.begin(), sub.end(), 0u);
+        for (int w = 0; w < KK_WARPS; w++) {
+            uint32_t* h = sub.data() + w * KK_BINS;
+            for (long long tile = (long long)blk * KK_WARPS + w;
+                 tile < plan.tiles; tile += (long long)blocks * KK_WARPS) {
+                long long t = plan.head + tile * KK_TILE;
+                for (int l = 0; l < 32; l++)
+                    kk_tile_stage(t, l, first_high, fp, sfh.data(),
+                                  sfp.data());
+                for (int l = 0; l < 32; l++)
+                    kk_tile_rows(t, l, n, n_high, sfh.data(), sfp.data(),
+                                 spl.data(), skp.data(), h);
+                for (int l = 0; l < 32; l++)
+                    kk_tile_store(t, l, spl.data(), skp.data(), payload,
+                                  keep);
+            }
+            for (int l = 0; l < 32; l++)
+                for (long long j = (long long)blk * KK_THREADS + 32 * w + l;
+                     j < rest; j += (long long)blocks * KK_THREADS)
+                    kk_tally(h, kk_row(kk_rest_row(plan, j), n, n_high,
+                                       first_high, fp, payload, keep));
         }
+        for (int b = 0; b < KK_BINS; b++)
+            kk_flush_bin(sub.data(), KK_WARPS, b, (uint64_t*)hist,
+                         (uint64_t*)hist_high);
     }
+}
+
+// KK's plan for these columns: (head, tiles).
+void kk_plan_host(long long C, const void* n, const void* n_high,
+                  const void* first_high, const void* fp, const void* payload,
+                  const void* keep, long long* out) {
+    KkPlan p = kk_plan(C, n, n_high, first_high, fp, payload, keep);
+    out[0] = p.head;
+    out[1] = p.tiles;
 }
 
 // KL's and KN's window build, phase by phase as kl_launch and kn_launch
@@ -551,18 +590,46 @@ void ko_host(long long Q, const int32_t* tab, long long N, const int32_t* idx,
         ko_query(tab, (uint32_t)(N - 1), idx[q], steps, v + q, ix + q);
 }
 
+// KP row mode as kp_row_launch runs it: each query's chain on the table,
+// then its row copied lane by lane.
 void kp_row_host(long long Q, const int32_t* tab, long long rows,
                  const int32_t* idx, int steps, int32_t* out, int32_t* ix) {
-    for (long long q = 0; q < Q; q++)
-        kp_row_query(tab, (uint32_t)(rows - 1), idx[q], steps,
-                     out + q * PROBE_W, ix + q);
+    uint32_t mask = (uint32_t)(rows - 1);
+    for (long long q = 0; q < Q; q++) {
+        uint32_t r = kp_row_chain(tab, mask, idx[q], steps);
+        for (int lane = 0; lane < 32; lane++)
+            kp_row_copy(tab, mask, r, lane, out + q * PROBE_W, ix + q);
+    }
 }
 
+// KP column mode as kp_column_launch runs it.  staged = 1: each pair of
+// groups of KP_COLS lanes staged, half by half, KP_STAGE_UNROLL rows at a
+// time (as the two blocks of a cluster hold them), then each query's
+// chains of each group walked together; staged = 0: each element's chain
+// walked in the table.
 void kp_column_host(long long Q, const int32_t* tab, long long rows,
-                    const int32_t* idx, int steps, int32_t* v, int32_t* ix) {
-    for (long long e = 0; e < Q * PROBE_W; e++)
-        kp_col_elem(tab, (uint32_t)(rows - 1), (int)(e % PROBE_W), idx[e],
-                    steps, v + e, ix + e);
+                    const int32_t* idx, int steps, int staged, int32_t* v,
+                    int32_t* ix) {
+    uint32_t mask = (uint32_t)(rows - 1);
+    if (!staged) {
+        for (long long e = 0; e < Q * PROBE_W; e++)
+            kp_col_elem(tab, mask, (int)(e % PROBE_W), idx, (size_t)e, steps,
+                        v, ix);
+        return;
+    }
+    std::vector<int32_t> col(2 * rows * KP_COLS);
+    for (int p0 = 0; p0 < PROBE_W; p0 += 2 * KP_COLS) {
+        for (int h = 0; h < 2; h++)
+            for (uint32_t r = 0; r < (uint32_t)rows; r += KP_STAGE_UNROLL)
+                kp_col_stage(tab, p0, h, (uint32_t)rows, r, 1,
+                             (uint32_t)rows, col.data() + h * rows * KP_COLS);
+        for (int h = 0; h < 2; h++)
+            for (long long q = 0; q < Q; q++) {
+                size_t e = (size_t)q * PROBE_W + p0 + h * KP_COLS;
+                kp_col_chains(col.data() + h * rows * KP_COLS, (uint32_t)rows,
+                              mask, idx + e, steps, v + e, ix + e);
+            }
+    }
 }
 
 void kp_lane_host(long long rows, const int32_t* tab, const int32_t* idx,

@@ -45,37 +45,117 @@ BFC_HD void ko_query(const int32_t* tab, uint32_t mask, int32_t ix0,
     *ix_out = (int32_t)ix;
 }
 
-// KP row mode, one step of the chain: the next row from the first word of
-// row ix of a [rows, PROBE_W] table (mask = rows - 1).  The rows between
-// the first and the last are read only for that word: the function needs
-// no more of them.
-BFC_HD uint32_t kp_row_step(const int32_t* tab, uint32_t mask, uint32_t ix) {
-    return probe_next(ix, tab[(size_t)ix * PROBE_W], mask);
+// KP over a [rows, PROBE_W] table (mask = rows - 1).  Column mode stages
+// in a block's shared memory what its chains read (the "shared" route:
+// KP_COLS columns of rows entries, at most KP_STAGE_BYTES) where the
+// chains are long enough to repay the stage, and otherwise walks the
+// table in device memory (the "global" route); ops/probe.py:tile_route
+// decides.  Row mode walks the table; lane mode stages its rows.
+#define KP_COLS 4                   // lanes a column-mode thread walks
+#define KP_STAGE_BYTES (128 * 1024)
+
+// Four i32 from a 16-byte boundary of a table or index array that the
+// kernel does not write (one read-only vector load on the card, which the
+// compiler may move ahead of the kernel's stores).
+BFC_HD void probe_load4(const int32_t* p, int32_t v[4]) {
+#ifdef __CUDA_ARCH__
+    int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+#else
+    for (int c = 0; c < 4; c++) v[c] = p[c];
+#endif
 }
 
-// KP row mode, one query: the row reached after steps - 1 steps is copied
-// whole to out_row, and the final index follows from its first word.
-BFC_HD void kp_row_query(const int32_t* tab, uint32_t mask, int32_t ix0,
-                         int steps, int32_t* out_row, int32_t* ix_out) {
-    uint32_t ix = (uint32_t)ix0 & mask;
-    for (int s = 1; s < steps; s++) ix = kp_row_step(tab, mask, ix);
-    const int32_t* row = tab + (size_t)ix * PROBE_W;
-    for (int l = 0; l < PROBE_W; l++) out_row[l] = row[l];
-    *ix_out = (int32_t)probe_next(ix, row[0], mask);
+BFC_HD void probe_store4(int32_t* p, const int32_t v[4]) {
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+#else
+    for (int c = 0; c < 4; c++) p[c] = v[c];
+#endif
 }
 
-// KP column mode, one element of lane l: v = tab[ix, l], each lane
-// walking its own column of a [rows, PROBE_W] table.
-BFC_HD void kp_col_elem(const int32_t* tab, uint32_t mask, int l, int32_t ix0,
-                        int steps, int32_t* v_out, int32_t* ix_out) {
-    uint32_t ix = (uint32_t)ix0 & mask;
-    int32_t v = 0;
+// KP column mode, the shared route's staging, half h of a pair of groups
+// (lanes p0 .. p0 + 2 KP_COLS - 1: one 32-byte sector of a row, whose
+// two halves two neighbouring threads read): the rows r, r + stride, ...
+// (KP_STAGE_UNROLL of them, those below end), every row's 16-byte load
+// before the first store, into group p0 / KP_COLS + h's columns, one after
+// another: col[c * rows + r] = tab[r, p0 + h KP_COLS + c].  On the card the
+// pair is the two blocks of a cluster, and col the shared memory of block
+// h, this block's or its peer's.
+#define KP_STAGE_UNROLL 4
+BFC_HD void kp_col_stage(const int32_t* tab, int p0, int h, uint32_t rows,
+                         uint32_t r, uint32_t stride, uint32_t end,
+                         int32_t* col) {
+    int32_t x[KP_STAGE_UNROLL][KP_COLS];
+#pragma unroll
+    for (int j = 0; j < KP_STAGE_UNROLL; j++)
+        if (r + j * stride < end)
+            probe_load4(tab + (size_t)(r + j * stride) * PROBE_W + p0 +
+                            h * KP_COLS,
+                        x[j]);
+#pragma unroll
+    for (int j = 0; j < KP_STAGE_UNROLL; j++)
+        if (r + j * stride < end)
+            for (int c = 0; c < KP_COLS; c++)
+                col[c * rows + r + j * stride] = x[j][c];
+}
+
+// KP column mode, the global route, one element of lane l (its index at
+// idx[e]): v = tab[ix, l], the chain walked in the table.
+BFC_HD void kp_col_elem(const int32_t* tab, uint32_t mask, int l,
+                        const int32_t* idx, size_t e, int steps, int32_t* v,
+                        int32_t* ix) {
+    uint32_t x = (uint32_t)idx[e] & mask;
+    int32_t y = 0;
     for (int s = 0; s < steps; s++) {
-        v = tab[(size_t)ix * PROBE_W + l];
-        ix = probe_next(ix, v, mask);
+        y = tab[(size_t)x * PROBE_W + l];
+        x = probe_next(x, y, mask);
     }
-    *v_out = v;
-    *ix_out = (int32_t)ix;
+    v[e] = y;
+    ix[e] = (int32_t)x;
+}
+
+// KP column mode, the shared route's walk of one query's lanes c0 ..
+// c0 + KP_COLS - 1 (ix0, from its idx row) in their staged columns
+// (col[c * rows + r] = tab[r, c0 + c]): the KP_COLS chains walked
+// together, each step's loads independent of each other.
+BFC_HD void kp_col_chains(const int32_t* col, uint32_t rows, uint32_t mask,
+                          const int32_t ix0[KP_COLS], int steps,
+                          int32_t v[KP_COLS], int32_t ix[KP_COLS]) {
+    uint32_t x[KP_COLS];
+    for (int c = 0; c < KP_COLS; c++) {
+        x[c] = (uint32_t)ix0[c] & mask;
+        v[c] = 0;
+    }
+    for (int s = 0; s < steps; s++) {
+#pragma unroll
+        for (int c = 0; c < KP_COLS; c++) {
+            v[c] = col[c * rows + x[c]];
+            x[c] = probe_next(x[c], v[c], mask);
+        }
+    }
+    for (int c = 0; c < KP_COLS; c++) ix[c] = (int32_t)x[c];
+}
+
+// KP row mode, one query's chain on the rows' first words: the row
+// reached after steps - 1 steps.
+BFC_HD uint32_t kp_row_chain(const int32_t* tab, uint32_t mask, int32_t ix0,
+                             int steps) {
+    uint32_t ix = (uint32_t)ix0 & mask;
+    for (int s = 1; s < steps; s++)
+        ix = probe_next(ix, tab[(size_t)ix * PROBE_W], mask);
+    return ix;
+}
+
+// KP row mode, lane `lane`'s quarter of the copy of final row ix (words
+// 4 lane .. 4 lane + 3, a 16-byte load and store); lane 0 also writes the
+// final index, which follows from the row's first word.
+BFC_HD void kp_row_copy(const int32_t* tab, uint32_t mask, uint32_t ix,
+                        int lane, int32_t* out, int32_t* ix_out) {
+    int32_t x[4];
+    probe_load4(tab + (size_t)ix * PROBE_W + 4 * lane, x);
+    probe_store4(out + 4 * lane, x);
+    if (lane == 0) *ix_out = (int32_t)probe_next(ix, x[0], mask);
 }
 
 // KP lane mode, one element: v = row[ix] within one row (mask =

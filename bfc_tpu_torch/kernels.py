@@ -141,7 +141,7 @@ KO = Kernel("probe_flat_gather", {
 })
 KP = Kernel("probe_tile_gather", {
     "kp_row_launch": [_LL, _P, _LL, _P, _I, _P, _P, _P],
-    "kp_column_launch": [_LL, _P, _LL, _P, _I, _P, _P, _P],
+    "kp_column_launch": [_LL, _P, _LL, _P, _I, _I, _P, _P, _P],
     "kp_lane_launch": [_LL, _P, _P, _I, _P, _P, _P],
 })
 KQ = Kernel("probe_onehot_passes", {

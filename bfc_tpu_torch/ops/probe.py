@@ -43,6 +43,9 @@ HIT = 1 << 16           # PROBE_HIT
 PASSES = 30             # PROBE_PASSES: the probes' one-hot passes a step
 ROW, COLUMN, LANE = "row", "column", "lane"
 REGISTERS, SHARED = "registers", "shared"
+GLOBAL = "global"       # KP's walk in device memory (SHARED: staged)
+KP_COLS = 4             # csrc/probe.cuh: lanes a column-mode thread walks
+KP_STAGE_BYTES = 128 * 1024   # shared memory a KP block stages
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -121,17 +124,35 @@ def tile_gather_plain(tab, idx, steps: int = 1, mode: str = ROW) -> Pair:
     return v, _i32(ix)
 
 
+def tile_route(rows: int, mode: str, steps: int, queries: int) -> str:
+    """Where KP's chains walk over a table of `rows` rows: SHARED, staged
+    in a block's shared memory (csrc/probe_tile_gather.cu), or GLOBAL, in
+    the table.  COLUMN stages KP_COLS columns (rows * 16 bytes: up to
+    8,192 rows) when a lane's chains take more steps in all than its
+    column has entries (queries * steps > rows): a stage costs about what
+    that many gathers from L2 do.  ROW walks the table (a stage of the
+    first words did not repay itself at its sites' 1 and 16 steps); LANE
+    always stages its rows."""
+    if mode == COLUMN:
+        return (SHARED if rows * KP_COLS * 4 <= KP_STAGE_BYTES
+                and queries * steps > rows else GLOBAL)
+    return GLOBAL if mode == ROW else SHARED
+
+
 def tile_gather(tab, idx, steps: int = 1, mode: str = ROW) -> Pair:
     """Gathers over a [rows, 128] int32 table (kernel KP), a dependent
     chain of `steps` steps:
       ROW     idx int32 [Q] row numbers: out int32 [Q, 128], the last
               row read, and ix int32 [Q] after ix = (ix + row[0]) &
-              (rows - 1); rows a power of two;
+              (rows - 1); rows a power of two; tab on a 16-byte boundary
+              on the card (its rows are copied 16 bytes a load);
       COLUMN  idx int32 [Q, 128]: v[q, l] = tab[ix[q, l], l], then
               ix = (ix + v) & (rows - 1); rows a power of two;
       LANE    idx int32 [rows, 128]: v[r, l] = tab[r, ix[r, l]], then
               ix = (ix + v) & 127; any number of rows.
-    Returns (out or v, ix)."""
+    Returns (out or v, ix).  On the card one launch a call, on the route
+    that tile_route gives (COLUMN's shared route reads tab and idx 16
+    bytes a load, so inputs off that boundary take the global one)."""
     R = tab.shape[0]
     dev = tab.device
     _steps(steps)
@@ -149,19 +170,30 @@ def tile_gather(tab, idx, steps: int = 1, mode: str = ROW) -> Pair:
     kernels.check(idx, "idx", torch.int32, shape, dev)
     if dev.type == "cpu":
         return tile_gather_plain(tab, idx, steps, mode)
-    Q = shape[0]
+    return _tile_gather_card(tab, idx, steps, mode)
+
+
+def _tile_gather_card(tab, idx, steps: int, mode: str) -> Pair:
+    """tile_gather's launch, its inputs checked."""
+    R, Q, dev = tab.shape[0], idx.shape[0], tab.device
     if mode == ROW:
+        if tab.data_ptr() % 16:
+            raise ValueError("tab: not on a 16-byte boundary (row mode "
+                             "copies rows 16 bytes a load)")
         out = torch.empty((Q, W), dtype=torch.int32, device=dev)
         ix = torch.empty((Q,), dtype=torch.int32, device=dev)
         kernels.KP.launch("kp_row_launch", Q, tab.data_ptr(), R,
                           idx.data_ptr(), steps, out.data_ptr(),
                           ix.data_ptr())
         return out, ix
-    v = torch.empty(shape, dtype=torch.int32, device=dev)
-    ix = torch.empty(shape, dtype=torch.int32, device=dev)
+    v = torch.empty(idx.shape, dtype=torch.int32, device=dev)
+    ix = torch.empty(idx.shape, dtype=torch.int32, device=dev)
     if mode == COLUMN:
+        staged = (tile_route(R, mode, steps, Q) == SHARED
+                  and tab.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0)
         kernels.KP.launch("kp_column_launch", Q, tab.data_ptr(), R,
-                          idx.data_ptr(), steps, v.data_ptr(), ix.data_ptr())
+                          idx.data_ptr(), steps, int(staged), v.data_ptr(),
+                          ix.data_ptr())
     else:
         kernels.KP.launch("kp_lane_launch", R, tab.data_ptr(),
                           idx.data_ptr(), steps, v.data_ptr(), ix.data_ptr())

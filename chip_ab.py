@@ -1,11 +1,12 @@
 """A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
 KD (ec1_search), KF (bloom_adjudicate), KI (first_occurrence), KM
-(route_rows), KH (max_streak), KL (cuckoo_build) and KN
-(cuckoo_build_local) of one tree of bfc_tpu_torch on one CUDA card.
+(route_rows), KH (max_streak), KL (cuckoo_build), KN
+(cuckoo_build_local), KK (finalize_counts) and KP (probe_tile_gather) of
+one tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
-                       [--parts main,verdicts,km,kh,kl,kn,paths]
+                       [--parts main,verdicts,km,kh,kl,kn,kk,kp,paths]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -72,12 +73,29 @@ row (KN: through both ranks' sub-tables) against the kept payloads
 order (call ms "ms_shuffled"); the bound (table written once, 20 bytes
 read a key) and the first design's (and a random 32-byte sector
 written a key).
+Then KK on the main fold (KI's verdict at -b30, as the device finalize
+takes it): the call (the median of 11 timed one at a time, host cost
+included, and the mean of 20), the kernel alone (the median replay of a
+CUDA graph of 50 launches on outputs allocated beforehand), its
+torch.profiler split, a call's device bytes above what was held, the
+sha256 of payload, keep, hist and hist_high and their mismatches against
+the plain version, and the bound (23 bytes a row); then the compaction
+that follows KK on the device finalize and the mesh (torch.nonzero(keep)
+and the gathers of shard, keybody and payload): call (median of 11),
+split, peak and sha256.  And KP at each of its probe sites
+(chip_probe.py: p2_sD1, p2_sD1_loop, p2_sD2, p2_sD2_loop, sg_sC and
+sg_sD): the route the wrapper took where the tree's wrapper names one, the
+kernel's, plain version's and library call's device ms (CUDA graphs, as
+chip_probe.py times them), the bound and the sha256 of the output; in a
+tree with KP's routes, column mode's two routes forced on the same
+inputs over an 8,192-row table, by steps, at 32, 2,048 and 8,192
+queries, each output held against the plain version.
 Then (paths) the walls of the paths that run KH and KM, as their reports
 give them, with the outputs' sha256: the trim path (`-1 -k51`, host
 finalize) through run_device, and the main path over two gloo ranks
 sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
 rank's KM launches.  --parts picks the sections: main (the count and
-KA-KD, the correction pass), verdicts, km, kh, kl, kn, paths.
+KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, kp, paths.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -139,7 +157,11 @@ VARIANTS = {
 # Bloom-block rule on the main fold
 KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
             ("bloom", 8))
-PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "paths")
+PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "kp", "paths")
+# KP's column routes forced on one 8,192-row table: (queries, steps)
+KP_ROUTE_ROWS = 8192
+KP_ROUTE_CASES = tuple((q, k) for q in (32, 2048, 8192)
+                       for k in (1, 2, 4, 6, 8, 16))
 VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
                  ("b30", 49_804_406, 30, "random"),
                  ("b30", 49_804_406, 30, "sorted"))
@@ -147,7 +169,13 @@ VARIANT_SHIFTS = {33: (6, 7), 30: (4, 6)}
 
 
 def _load_smoke():
-    """chip_smoke.py of this directory (data recipe, batches, timing)."""
+    """chip_smoke.py of this directory (data recipe, batches, timing),
+    with chip_probe.py of this directory as the one it imports."""
+    spec = importlib.util.spec_from_file_location("chip_probe",
+                                                  HERE / "chip_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    sys.modules["chip_probe"] = probe
+    spec.loader.exec_module(probe)
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   HERE / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -494,6 +522,107 @@ def cuckoo_cases(torch, smoke, kernels, spec, C, kops, opt, fold, which,
     return out
 
 
+def kk_cases(torch, smoke, kernels, spec, fold, opt) -> dict:
+    """KK on the main fold with KI's verdict, and the compaction after it
+    (as the module docstring says)."""
+    fp = spec.adjudicate_first_occurrence(fold.ret, fold.arr, opt.bf_shift,
+                                          opt.n_hashes)
+    cols = (fold.n, fold.n_high, fold.first_high, fp)
+    C, dev = fold.n.shape[0], fold.n.device
+    call = lambda: spec.finalize_counts(*cols)
+    got, peak = _peak(torch, call)
+    want = spec.finalize_counts_plain(*cols)
+    kernels.reset_launches()
+    call()
+    r = {"rows": C, "kept": int(got[1].sum()), "peak_bytes": peak,
+         "launches_a_call": kernels.KK.launches, "sha256": _sha(*got),
+         "mismatches": sum(int((g != w).sum()) for g, w in zip(got, want)),
+         "ms_median": smoke.cuda_median_ms(call, MEDIAN_REPS),
+         "ms": smoke.cuda_ms(call, CALL_REPS),
+         "bound_ms": smoke.bound(C * 23, C * smoke.OPS_KK_ROW)[0]}
+    del want
+    payload = torch.empty((C,), dtype=torch.int32, device=dev)
+    keep = torch.empty((C,), dtype=torch.bool, device=dev)
+    hist = torch.zeros((256,), dtype=torch.int64, device=dev)
+    hist_high = torch.zeros((64,), dtype=torch.int64, device=dev)
+    args = (C, *(x.data_ptr() for x in (*cols, payload, keep, hist,
+                                        hist_high)))
+    r["kernel_ms"] = smoke.graph_ms(
+        [lambda: kernels.KK.launch("kk_launch", *args)], GRAPH_REPS)
+    r["breakdown_ms"] = _breakdown(torch, call, 5)
+    del payload, keep, hist, hist_high
+    payload, keep = got[:2]
+
+    def compact():
+        idx = torch.nonzero(keep).flatten()
+        return fold.shard[idx], fold.keybody[idx], payload[idx]
+    kept, cpeak = _peak(torch, compact)
+    comp = {"rows": C, "kept": kept[0].shape[0], "peak_bytes": cpeak,
+            "sha256": _sha(*kept),
+            "ms_median": smoke.cuda_median_ms(compact, MEDIAN_REPS),
+            "breakdown_ms": _breakdown(torch, compact, 5),
+            # keep read once; each kept row's shard, keybody and payload
+            # read and written once
+            "bound_ms": smoke.bound(C + kept[0].shape[0] * 40, 0)[0]}
+    del got, kept, fp
+    torch.cuda.empty_cache()
+    return {"kk": r, "compaction": comp}
+
+
+def kp_cases(torch, probe_mod, kernels, dev, seed: int) -> dict:
+    """KP at its probe sites: chip_probe.run's rows (check, times, bound),
+    the route the tree's wrapper takes where it names one, and the sha256
+    of each site's output; where the tree has routes, both routes at the
+    same inputs (kp_routes)."""
+    from bfc_tpu_torch.ops import probe as P
+    sites = [s for s in probe_mod.SITES if s.kernel == "KP"]
+    rows, launches = probe_mod.run(dev, sites=sites)
+    out = {"launches": launches[probe_mod.KERNEL["KP"]]}
+    for s, r in zip(sites, rows):
+        inp = probe_mod.make_inputs(s, dev)
+        r["sha256"] = _sha(*probe_mod.kernel_call(s, inp))
+        r["route"] = probe_mod.route(s) or "the first design"
+        out[probe_mod.label(s)] = r
+        del inp
+    if hasattr(P, "tile_route"):
+        out["routes"] = kp_routes(torch, probe_mod, kernels, P, dev, seed)
+    torch.cuda.empty_cache()
+    return out
+
+
+def kp_routes(torch, probe_mod, kernels, P, dev, seed: int) -> dict:
+    """KP's column mode on its shared and global routes, forced on the
+    same inputs over an 8,192-row table, by steps, at 32 queries (nearly
+    the stage alone), 2,048 and 8,192.  Device ms a call (CUDA graphs, as
+    chip_probe.py times the sites), each output held against the plain
+    version, and the route tile_route takes."""
+    R = KP_ROUTE_ROWS
+    gen = torch.Generator().manual_seed(seed)
+    tab = torch.randint(0, 1 << 30, (R, P.W), generator=gen,
+                        dtype=torch.int32).to(dev)
+    out = {}
+    for Q, steps in KP_ROUTE_CASES:
+        idx = torch.randint(0, R, (Q, P.W), generator=gen,
+                            dtype=torch.int32).to(dev)
+        want = P.tile_gather_plain(tab, idx, steps, P.COLUMN)
+        got = [torch.empty_like(w) for w in want]
+        calls = {route: lambda staged=staged: kernels.KP.launch(
+            "kp_column_launch", Q, tab.data_ptr(), R, idx.data_ptr(),
+            steps, staged, got[0].data_ptr(), got[1].data_ptr())
+            for route, staged in ((P.SHARED, 1), (P.GLOBAL, 0))}
+        r = {"taken": P.tile_route(R, P.COLUMN, steps, Q)}
+        for route, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            if any(bool((g != w).any()) for g, w in zip(got, want)):
+                raise RuntimeError(f"chip_ab: KP column {route} route at "
+                                   f"{Q} queries x {steps} steps differs "
+                                   "from its plain version")
+            r[route] = probe_mod.graph_ms([call], GRAPH_REPS)
+        out[f"column_q{Q}_s{steps}"] = r
+    return out
+
+
 def path_walls(smoke, Opts, fq: Path, tmp: Path, tree: Path) -> dict:
     """The trim path through run_device and the main path over two gloo
     ranks sharing the card through the launcher: walls, launches of KH
@@ -730,7 +859,7 @@ def main() -> int:
                                          quals, dev)
             del bloom
             torch.cuda.empty_cache()
-        if parts & {"verdicts", "km", "kl", "kn"}:
+        if parts & {"verdicts", "km", "kl", "kn", "kk"}:
             agg = C.AggBuilder(opt, dev)
             for cbases, cqok, clens, _ in C.padded_batches(str(fq), opt,
                                                            smoke.COUNT_B):
@@ -744,6 +873,12 @@ def main() -> int:
             if parts & {"kl", "kn"}:
                 rec.update(cuckoo_cases(torch, smoke, kernels, spec, C, kops,
                                         opt, main_fold, parts, args.seed))
+            if "kk" in parts:
+                rec.update(kk_cases(torch, smoke, kernels, spec, main_fold,
+                                    opt))
+        if "kp" in parts:
+            rec["kp"] = kp_cases(torch, sys.modules["chip_probe"], kernels,
+                                 dev, args.seed)
         if "paths" in parts:
             rec["paths"] = path_walls(smoke, Opts, fq, tmp, tree)
         if "verdicts" in parts:

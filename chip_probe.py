@@ -147,6 +147,18 @@ def label(s: Site) -> str:
     return s.name + (f"/{s.mode}" if s.mode else "")
 
 
+def route(s: Site) -> str:
+    """The way a KP site's wrapper walks (ops/probe.py:tile_route, by the
+    table's rows, the steps and the queries), "" for the other kernels
+    and for a package without routes (chip_ab.py runs this file against
+    older trees too)."""
+    tile_route = getattr(P, "tile_route", None)
+    if s.kernel != "KP" or tile_route is None:
+        return ""
+    rows = s.q if s.mode == P.LANE else s.n // P.W
+    return tile_route(rows, s.mode, s.steps, s.q)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -434,9 +446,10 @@ def run(dev, reps: int = REPS, sites: List[Site] = SITES,
         timed: bool = True) -> Tuple[List[dict], Dict[str, int]]:
     """The probe path: every site's kernel launched once, with every
     launch count zeroed just before and read just after (the returned
-    dict); then each site's output held against its plain version on the
-    same tensors and, if timed, the kernel, plain and library times.
-    Raises on any mismatch.  Returns one result dict a site."""
+    dict), which on the card must be one a site; then each site's
+    output held against its plain version on the same tensors and, if
+    timed, the kernel, plain and library times.  Raises on any mismatch.
+    Returns one result dict a site, with KP's route."""
     inputs = [make_inputs(s, dev) for s in sites]
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
     sync()
@@ -444,6 +457,12 @@ def run(dev, reps: int = REPS, sites: List[Site] = SITES,
     outs = [kernel_call(s, inp) for s, inp in zip(sites, inputs)]
     sync()
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    want = {v: sum(KERNEL[s.kernel] == v for s in sites)
+            for v in KERNEL.values()}
+    if dev.type == "cuda" and any(launches[k] != n
+                                  for k, n in want.items()):
+        raise RuntimeError(f"chip_probe: launches {launches}, expected "
+                           f"{want}")
     rows = []
     for s, inp, got in zip(sites, inputs, outs):
         err, bad = compare(got, plain_call(s, inp))
@@ -455,7 +474,8 @@ def run(dev, reps: int = REPS, sites: List[Site] = SITES,
         b_ms, b_by = bound(nbytes, ops)
         lib, lib_name = library_call(s, inp)
         r = {"site": s.name, "replaces": s.replaces, "kernel": s.kernel,
-             "name": KERNEL[s.kernel], "mode": s.mode, "table_entries": s.n,
+             "name": KERNEL[s.kernel], "mode": s.mode, "route": route(s),
+             "table_entries": s.n,
              "queries": s.q, "steps": s.steps, "gathers": gathers,
              "max_abs_err": err, "mismatches": bad, "bound_ms": b_ms,
              "bound_by": b_by, "bound_comparable": floor, "bytes": nbytes,

@@ -125,9 +125,10 @@ Phases (any failure raises; nothing is caught):
 15. The probe path (chip_probe.run): every pl.pallas_call site of the TPU
    probe scripts at its own shapes, and KO and KR over 256 MiB, through
    KO-KR in every mode and variant, launch counts zeroed just before and
-   read just after (each of KO-KR must have launched); each output held
-   exactly against its plain version, then timed beside its plain version
-   and the matching PyTorch library call.
+   read just after (each of KO-KR must have launched, once a site); each
+   output held exactly against its plain version, KP's route (shared or
+   global, by the shapes and steps) printed, then timed beside its plain
+   version and the matching PyTorch library call.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -1453,11 +1454,11 @@ def probe_kernel_rows(probe_rows, launches):
             "library_ms": r["library_ms"], "library": r["library"],
             "timing": TIMING_GRAPH, "site": f"{site} {mode}".strip(),
             "sites": {f"{x['site']} {x['mode']}".strip(): {
-                k: x.get(k) for k in (
+                "walk": x["route"], **{k: x.get(k) for k in (
                     "replaces", "steps", "queries", "table_entries", "ms",
                     "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "bound_comparable", "ns_per_step", "ns_per_gather",
-                    "sectors_per_s")}
+                    "sectors_per_s")}}
                 for x in mine}})
     return rows
 
@@ -1923,7 +1924,8 @@ def main() -> int:
                       "the probe path")
         for r in probe_rows:
             lib = r["library_ms"]
-            print(f"probe {r['site']} {r['kernel']} {r['mode']}: "
+            walk = f" ({r['route']} route)" if r["route"] else ""
+            print(f"probe {r['site']} {r['kernel']} {r['mode']}{walk}: "
                   f"{r['ms']:.4f} ms ({r['ns_per_step']:.1f} ns a step), "
                   f"plain {r['plain_ms']:.3f} ms, library "
                   f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "

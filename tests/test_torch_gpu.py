@@ -2,7 +2,9 @@
 card (KA and KC also on rows of 600 slots and on a batch that is not a
 multiple of a block's warps; KH also on 600 slots and on reads ending
 short of their rows; KB and KM at their tile edges, KM at 1 to 256
-ranks; KD with reads deferred to its second pass), the trim path and
+ranks; KD with reads deferred to its second pass; KK at odd row counts
+and unaligned inputs; KP at the probe sites' shapes and on both routes),
+the trim path and
 the device finalize on the card against the same
 paths on the CPU (also at -b35, KF's from arrival 0 and KI's from 2^33),
 KF and KI on a fold whose hot blocks hold over 1,000 rows, and the mesh
@@ -355,6 +357,63 @@ def test_kp_matches_plain(card, mode, steps):
     _eq([g.cpu() for g in got], want)
 
 
+# the probe sites' shapes (chip_probe.py: rows, queries, steps; lane
+# mode's queries are its rows), both sides of column mode's rule, one
+# table above its shared route, and row walks of 24 to 64 steps
+@pytest.mark.parametrize("mode,R,Q,steps", [
+    (probe.ROW, 8192, 8192, 1), (probe.ROW, 8192, 8192, 16),
+    (probe.ROW, 8192, 8192, 64), (probe.COLUMN, 8192, 8192, 1),
+    (probe.COLUMN, 8192, 8192, 16), (probe.LANE, 2048, 2048, 16),
+    (probe.COLUMN, 8192, 2048, 16), (probe.LANE, 2051, 2051, 3),
+    (probe.COLUMN, 8192, 2048, 4), (probe.COLUMN, 8192, 2048, 5),
+    (probe.ROW, 8192, 33, 24), (probe.ROW, 2, 70, 30),
+    (probe.COLUMN, 16384, 700, 16), (probe.ROW, 65536, 5000, 64),
+    (probe.COLUMN, 8192, 1, 16), (probe.COLUMN, 4, 300, 16)])
+def test_kp_sites_match_plain(card, mode, R, Q, steps):
+    rng = np.random.default_rng(R + Q + steps)
+    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (R, 128)).astype(
+        np.int32))
+    shape = {probe.ROW: (Q,), probe.COLUMN: (Q, 128),
+             probe.LANE: (R, 128)}[mode]
+    idx = _probe_idx(rng, shape, 128 if mode == probe.LANE else R)
+    want = probe.tile_gather(tab, idx, steps, mode)
+    kernels.reset_launches()
+    got = probe.tile_gather(tab.to(card), idx.to(card), steps, mode)
+    torch.cuda.synchronize()
+    _eq([g.cpu() for g in got], want)
+    assert kernels.KP.launches == 1
+
+
+@pytest.mark.parametrize("mode", [probe.ROW, probe.COLUMN, probe.LANE])
+@pytest.mark.parametrize("off", [(0, 1), (1, 0), (3, 3)])
+def test_kp_views_off_16_bytes(card, mode, off):
+    """KP on views that start 4 or 12 bytes past a 16-byte boundary (tab,
+    idx): equal to the plain version, column mode's shared route (16 steps
+    over 8,192 rows, 2,048 queries) giving way to the global one; row
+    mode raises on such a tab."""
+    rng = np.random.default_rng(7 + sum(off))
+    R, Q, steps = 8192, 2048, 16
+    tab = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, R * 128 + off[0]).astype(np.int32))
+    shape = {probe.ROW: (Q,), probe.COLUMN: (Q, 128),
+             probe.LANE: (R, 128)}[mode]
+    idx = _probe_idx(rng, (int(np.prod(shape)) + off[1],),
+                     128 if mode == probe.LANE else R)
+    tab_c = tab.to(card)[off[0]:].view(R, 128)
+    idx_c = idx.to(card)[off[1]:].view(shape)
+    tab, idx = tab[off[0]:].view(R, 128), idx[off[1]:].view(shape)
+    if mode == probe.ROW and off[0]:
+        with pytest.raises(ValueError, match="16-byte"):
+            probe.tile_gather(tab_c, idx_c, steps, mode)
+        return
+    want = probe.tile_gather(tab, idx, steps, mode)
+    kernels.reset_launches()
+    got = probe.tile_gather(tab_c, idx_c, steps, mode)
+    torch.cuda.synchronize()
+    _eq([g.cpu() for g in got], want)
+    assert kernels.KP.launches == 1
+
+
 @pytest.mark.parametrize("variant", [probe.REGISTERS, probe.SHARED])
 def test_kq_matches_plain(card, variant):
     rng = np.random.default_rng(7)
@@ -367,6 +426,24 @@ def test_kq_matches_plain(card, variant):
         got = probe.onehot_passes(x.to(card), pos.to(card), steps, variant)
         torch.cuda.synchronize()
         _eq((got.cpu(),), (want,))
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("C", [1, 17, 511, 513, 255 * 512 + 77,
+                               3_000_001])
+def test_kk_edges_match_plain(card, C, offset):
+    """KK at odd row counts, one that leaves a block's warps part of a
+    last round of tiles, and inputs that start 3 rows into their buffers
+    (so that no tile aligns with the outputs: every row one a thread)."""
+    rng = np.random.default_rng(C + offset)
+    n = np.where(rng.random(C + offset) < 0.4, 1,
+                 1 + rng.integers(0, 400, C + offset))
+    first_high = rng.integers(0, 2, C + offset)
+    n_high = np.minimum(n, first_high + rng.integers(0, 100, C + offset))
+    fp = rng.random(C + offset) < 0.5
+    cols = [torch.from_numpy(x).to(card)[offset:]
+            for x in (n, n_high, first_high.astype(np.uint8), fp)]
+    _eq(spec.finalize_counts(*cols), spec.finalize_counts_plain(*cols))
 
 
 @pytest.mark.parametrize("k", [21, 51])

@@ -71,7 +71,8 @@ def shim(tmp_path_factory):
     lib.ki_host.argtypes = [LL, P, P, I, I, I, I, P]
     lib.ki_host.restype = LL
     lib.kj_host.argtypes = [LL, P, P, I, I, P]
-    lib.kk_host.argtypes = [LL] + [P] * 8
+    lib.kk_host.argtypes = [LL] + [P] * 8 + [I]
+    lib.kk_plan_host.argtypes = [LL] + [P] * 7
     lib.ck_host.argtypes = [LL, P, P, P, I, I, I, I, P, P, P, I, I]
     lib.subtable_slots_host.argtypes = [LL, P, P, I, I, I, I, P, P, P, P]
     lib.kh_steps_host.argtypes = [P, I, I]
@@ -80,7 +81,7 @@ def shim(tmp_path_factory):
     lib.km_scatter_host.argtypes = [LL, I, P, P, I, I, LL] + [P] * 10
     lib.ko_host.argtypes = [LL, P, LL, P, I, P, P]
     lib.kp_row_host.argtypes = [LL, P, LL, P, I, P, P]
-    lib.kp_column_host.argtypes = [LL, P, LL, P, I, P, P]
+    lib.kp_column_host.argtypes = [LL, P, LL, P, I, I, P, P]
     lib.kp_lane_host.argtypes = [LL, P, P, I, P, P]
     lib.kq_registers_host.argtypes = [LL, P, P, I]
     lib.kq_shared_host.argtypes = [LL, P, P, I]
@@ -91,7 +92,8 @@ def shim(tmp_path_factory):
         f.restype = None
     for f in (lib.ka_host, lib.kc_host, lib.kd_host, lib.ke_host,
               lib.kg_host, lib.kh_host, lib.probe_bits_host, lib.kj_host,
-              lib.kk_host, lib.km_count_host, lib.km_scatter_host,
+              lib.kk_host, lib.kk_plan_host, lib.km_count_host,
+              lib.km_scatter_host,
               lib.subtable_slots_host, lib.ck_host):
         f.restype = None
     return lib
@@ -914,22 +916,93 @@ def test_kj_body_matches_plain(shim, k):
 
 
 def test_kk_body_matches_plain(shim, trim_agg):
-    """On the aggregate's rows with counts raised past both payload caps."""
+    """On the aggregate's rows with counts raised past both payload caps,
+    as one block and as five (a warp's tiles in turn, the rows after the
+    last tile spread over the threads, five flushes)."""
     opt, run, ret, _, _, _ = trim_agg
     n, n_high = run.n * 100, run.n_high * 100
     fp = tspec.adjudicate_first_occurrence_plain(ret, run.arr, opt.bf_shift,
                                                  opt.n_hashes)
     C = len(ret)
-    payload = torch.empty((C,), dtype=torch.int32)
-    keep = torch.empty((C,), dtype=torch.bool)
+    want = tspec.finalize_counts_plain(n, n_high, run.first_high, fp)
+    for blocks in (1, 5):
+        got = _kk_host(shim, n, n_high, run.first_high, fp, blocks)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert int(want[2][255]) > 0 and int(want[3][63]) > 0
+    assert _kk_plan(shim, n, n_high, run.first_high, fp, *got[:2])[1] == (
+        C // KK_TILE)
+
+
+KK_TILE = 512   # csrc/finalize.cuh: rows of a warp's tile
+
+
+def _kk_host(shim, n, n_high, first_high, fp, blocks, payload=None,
+             keep=None):
+    """KK's kernel as the shim runs it on `blocks` blocks: (payload, keep,
+    hist, hist_high); payload and keep given as views to write into."""
+    C = n.shape[0]
+    if payload is None:
+        payload = torch.empty((C,), dtype=torch.int32)
+        keep = torch.empty((C,), dtype=torch.bool)
     hist = torch.zeros((256,), dtype=torch.int64)
     hist_high = torch.zeros((64,), dtype=torch.int64)
-    shim.kk_host(C, _p(n), _p(n_high), _p(run.first_high), _p(fp),
-                 _p(payload), _p(keep), _p(hist), _p(hist_high))
-    want = tspec.finalize_counts_plain(n, n_high, run.first_high, fp)
-    for g, w in zip((payload, keep, hist, hist_high), want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert int(hist[255]) > 0 and int(hist_high[63]) > 0
+    shim.kk_host(C, _p(n), _p(n_high), _p(first_high), _p(fp), _p(payload),
+                 _p(keep), _p(hist), _p(hist_high), blocks)
+    return payload, keep, hist, hist_high
+
+
+def _kk_plan(shim, n, n_high, first_high, fp, payload, keep):
+    out = (ctypes.c_longlong * 2)()
+    shim.kk_plan_host(n.shape[0], _p(n), _p(n_high), _p(first_high), _p(fp),
+                      _p(payload), _p(keep), out)
+    return tuple(out)
+
+
+def _kk_cols(rng, C, pad):
+    """Seeded KK inputs of C + pad rows, as bfc_tpu's fold holds them: n
+    >= 1 (a single occurrence for 40% of the rows, so that a fifth are
+    dropped; up to past the count cap), first_high <= n_high <= n (past
+    the high cap), fp from a coin."""
+    n = np.where(rng.random(C + pad) < 0.4, 1,
+                 1 + rng.integers(0, 400, C + pad))
+    first_high = rng.integers(0, 2, C + pad)
+    n_high = np.minimum(n, first_high + rng.integers(0, 100, C + pad))
+    fp = rng.random(C + pad) < 0.5
+    return (torch.from_numpy(n).clone(), torch.from_numpy(n_high).clone(),
+            torch.from_numpy(first_high.astype(np.uint8)).clone(),
+            torch.from_numpy(fp).clone())
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (3, 3), (5, 0)])
+@pytest.mark.parametrize("C", [0, 1, 15, 16, 17, 511, 512, 513, 1041,
+                               9 * KK_TILE + 300])
+def test_kk_tiles_match_plain(shim, C, offsets):
+    """KK's many-row body: tiles of 512 rows from the first row where every
+    column lies on a 16-byte boundary, the unaligned head and the tail one
+    a thread, per-warp sub-histograms merged a block at a time, on one
+    block and on three, at C around a lane's 16 rows and a tile's 512.
+    Offsets (inputs, outputs) in rows: (0, 0) aligned, tiles from row 0;
+    (3, 3) a head of 13 rows; (5, 0) columns that never align together,
+    every row one a thread."""
+    rng = np.random.default_rng(1000 + C)
+    i_off, o_off = offsets
+    cols = tuple(x[i_off:i_off + C] for x in _kk_cols(rng, C, 16))
+    payload = torch.empty((C + 16,), dtype=torch.int32)[o_off:o_off + C]
+    keep = torch.empty((C + 16,), dtype=torch.bool)[o_off:o_off + C]
+    head, tiles = _kk_plan(shim, *cols, payload, keep)
+    h = -cols[3].data_ptr() % 16
+    aligned = all((t.data_ptr() + h * t.element_size()) % 16 == 0
+                  for t in (*cols, payload, keep))
+    want_tiles = (C - h) // KK_TILE if aligned and h < C else 0
+    assert (head, tiles) == ((h, want_tiles) if want_tiles else (C, 0))
+    if offsets == (0, 0):
+        assert tiles == C // KK_TILE
+    want = tspec.finalize_counts_plain(*cols)
+    for blocks in (1, 3):
+        got = _kk_host(shim, *cols, blocks, payload, keep)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 CK_WIN_BITS = 12  # csrc/cuckoo.cuh: the card's window of slots
@@ -1495,6 +1568,9 @@ def test_ko_body_matches_plain(shim, steps):
 @pytest.mark.parametrize("mode", ["row", "column", "lane"])
 @pytest.mark.parametrize("steps", [1, 16])
 def test_kp_body_matches_plain(shim, mode, steps):
+    """Each mode on the route the wrapper takes for 32 rows (tile_route:
+    column mode the shared one at 16 steps and the global one at 1, row
+    mode the global one)."""
     rng = np.random.default_rng(70 + steps)
     R = 32
     tab = torch.from_numpy(
@@ -1502,14 +1578,98 @@ def test_kp_body_matches_plain(shim, mode, steps):
     shape = {"row": (200,), "column": (40, 128), "lane": (R, 128)}[mode]
     idx = _probe_idx(rng, shape, 128 if mode == "lane" else R)
     want = tprobe.tile_gather_plain(tab, idx, steps, mode)
-    got = _empty_like(*want)
-    fn = getattr(shim, f"kp_{mode}_host")
-    if mode == "lane":
-        fn(R, _p(tab), _p(idx), steps, *(_p(g) for g in got))
-    else:
-        fn(shape[0], _p(tab), R, _p(idx), steps, *(_p(g) for g in got))
+    got = _kp_host(shim, tab, idx, steps, mode,
+                   tprobe.tile_route(R, mode, steps, shape[0]))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _kp_host(shim, tab, idx, steps, mode, route):
+    """KP's kernel as the shim runs it on this route: (out or v, ix)."""
+    R, Q = tab.shape[0], idx.shape[0]
+    if mode == "row":
+        got = (torch.empty((Q, 128), dtype=torch.int32),
+               torch.empty((Q,), dtype=torch.int32))
+        shim.kp_row_host(Q, _p(tab), R, _p(idx), steps,
+                         *(_p(g) for g in got))
+        return got
+    got = _empty_like(idx, idx)
+    if mode == "column":
+        shim.kp_column_host(Q, _p(tab), R, _p(idx), steps,
+                            int(route == tprobe.SHARED),
+                            *(_p(g) for g in got))
+    else:
+        shim.kp_lane_host(R, _p(tab), _p(idx), steps, *(_p(g) for g in got))
+    return got
+
+
+@pytest.mark.parametrize("steps", [1, 16])
+@pytest.mark.parametrize("mode,rows,route", [
+    ("column", 8192, "shared"), ("column", 8192, "global"),
+    ("column", 16384, "global"), ("column", 4, "shared"),
+    ("column", 1, "shared"), ("column", 2, "global"),
+    ("row", 32768, "global"), ("row", 65536, "global"),
+    ("row", 256, "global"), ("row", 2, "global"), ("row", 1, "global")])
+def test_kp_routes_match_plain(shim, mode, rows, route, steps):
+    """KP's column walk on both routes, staged (the columns of a group of
+    four lanes, one after another) and in the table, on both sides of
+    tile_route's boundary (8,192 and 16,384 rows); row mode's walk in the
+    table at 32,768 and 65,536 rows; on tables of 1, 2 and 4 rows, at 1
+    and 16 steps; indices at the table's edges
+    and outside it, every group's edge lanes (4 c0 - 1, 4 c0) in each
+    query."""
+    rng = np.random.default_rng(rows + steps)
+    tab = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, (rows, 128)).astype(np.int32))
+    shape = (40, 128) if mode == "column" else (200,)
+    idx = _probe_idx(rng, shape, rows)
+    idx.view(-1)[4:8] = torch.tensor([0, rows - 1, rows - 1, 0],
+                                     dtype=torch.int32)
+    want = tprobe.tile_gather_plain(tab, idx, steps, mode)
+    got = _kp_host(shim, tab, idx, steps, mode, route)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["row", "column", "lane"])
+@pytest.mark.parametrize("off", [(0, 0), (1, 0), (0, 3)])
+def test_kp_wrapper_takes_views_off_16_bytes(shim, monkeypatch, mode, off):
+    """tile_gather's card path, with the shim doing its launch, on views
+    that start 4 or 12 bytes past a 16-byte boundary (tab, idx): one
+    launch, equal to the plain version; column mode's shared route (16
+    steps over 32 rows), which reads 16 bytes a load, gives way to the
+    global one where either input is off the boundary; row mode, whose
+    copy reads tab 16 bytes a load, raises on such a tab only."""
+    calls = []
+
+    def launch(fn, *args):
+        calls.append((fn, args))
+        getattr(shim, fn.replace("_launch", "_host"))(*args)
+
+    monkeypatch.setattr(kernels.KP, "launch", launch)
+    rng = np.random.default_rng(sum(off) + len(mode))
+    R, steps = 32, 16
+    tab = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, R * 128 + off[0]).astype(np.int32))
+    tab = tab[off[0]:].view(R, 128)
+    shape = {"row": (200,), "column": (40, 128), "lane": (R, 128)}[mode]
+    idx = _probe_idx(rng, (int(np.prod(shape)) + off[1],),
+                     128 if mode == "lane" else R)[off[1]:].view(shape)
+    assert (tab.data_ptr() % 16 != 0) == (off[0] != 0)
+    assert (idx.data_ptr() % 16 != 0) == (off[1] != 0)
+    want = tprobe.tile_gather_plain(tab, idx, steps, mode)
+    if mode == "row" and off[0]:
+        with pytest.raises(ValueError, match="16-byte"):
+            tprobe._tile_gather_card(tab, idx, steps, mode)
+        assert calls == []
+        return
+    got = tprobe._tile_gather_card(tab, idx, steps, mode)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [fn for fn, _ in calls] == [f"kp_{mode}_launch"]
+    if mode == "column":
+        assert tprobe.tile_route(R, mode, steps, 40) == tprobe.SHARED
+        assert calls[0][1][5] == int(off == (0, 0))
 
 
 @pytest.mark.parametrize("variant", ["registers", "shared"])

@@ -532,6 +532,45 @@ def test_chip_probe_covers_every_site():
     assert set(chip_probe.REPRESENTATIVE.values()) <= names
 
 
+@pytest.mark.parametrize("mode", [P.ROW, P.COLUMN, P.LANE])
+def test_kp_route_by_shape(mode):
+    """KP's route (tile_route): column mode stages its four lanes' columns
+    where they fit a block's 128 KiB (up to 8,192 rows) and a lane's
+    chains take more steps in all than its column has entries (queries *
+    steps > rows); row mode walks the table; lane mode stages its rows."""
+    route = P.tile_route
+    if mode == P.COLUMN:
+        assert route(8192, mode, 16, 2048) == P.SHARED
+        assert route(8192, mode, 2, 8192) == P.SHARED
+        assert route(8192, mode, 1, 8192) == P.GLOBAL
+        assert route(8192, mode, 4, 2048) == P.GLOBAL
+        assert route(1, mode, 1, 2) == P.SHARED
+        assert route(16384, mode, 64, 8192) == P.GLOBAL
+    elif mode == P.ROW:
+        assert route(1, mode, 64, 1) == P.GLOBAL
+        assert route(8192, mode, 16, 8192) == P.GLOBAL
+        assert route(65536, mode, 64, 8192) == P.GLOBAL
+    else:
+        assert route(1 << 20, mode, 1, 1 << 20) == P.SHARED
+
+
+def test_chip_probe_kp_routes():
+    """The probe path's KP sites (8,192 rows a table, and sC's 2,048): the
+    column sites stage where a lane's chains take more steps than its
+    column has entries (sg_sD, p2_sD2_loop, not p2_sD2's one step), the
+    row sites walk the table, lane mode always stages; the other kernels'
+    sites have no route."""
+    kp = {s.name: s for s in chip_probe.SITES if s.kernel == "KP"}
+    assert set(kp) == {"p2_sD1", "p2_sD1_loop", "p2_sD2", "p2_sD2_loop",
+                       "sg_sC", "sg_sD"}
+    shared = {n for n, s in kp.items() if chip_probe.route(s) == P.SHARED}
+    assert shared == {"p2_sD2_loop", "sg_sC", "sg_sD"}
+    assert {chip_probe.route(s) for s in kp.values()} == {P.SHARED,
+                                                          P.GLOBAL}
+    assert all(chip_probe.route(s) == "" for s in chip_probe.SITES
+               if s.kernel != "KP")
+
+
 def _kr_inputs(hi, q=64, seed=9):
     rng = np.random.default_rng(seed)
     n = hi.shape[0]

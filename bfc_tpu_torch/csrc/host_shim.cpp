@@ -639,22 +639,50 @@ void kp_lane_host(long long rows, const int32_t* tab, const int32_t* idx,
                      ix + e);
 }
 
-void kq_registers_host(long long B, int32_t* x, const int32_t* pos,
-                       int steps) {
-    for (long long b = 0; b < B; b++)
-        for (int lane = 0; lane < 32; lane++)
-            kq_lane(x + b * PROBE_W + 4 * lane, lane, pos[b], steps);
+// KQ as kq_*_launch runs it: blocks of KQ_ROWS rows, a warp a row (rows
+// past B left alone), each lane's four columns read from x and written
+// to out; the shared variant stages the row (its shared memory) and
+// applies its lanes' passes one after another.
+void kq_registers_host(long long B, const int32_t* x, const int32_t* pos,
+                       int steps, int32_t* out) {
+    for (long long blk = 0; blk * KQ_ROWS < B; blk++)
+        for (int w = 0; w < KQ_ROWS; w++) {
+            long long b = blk * KQ_ROWS + w;
+            if (b >= B) continue;
+            for (int lane = 0; lane < 32; lane++) {
+                int32_t r[4];
+                probe_load4(x + b * PROBE_W + 4 * lane, r);
+                kq_lane(r, lane, pos[b], steps);
+                probe_store4(out + b * PROBE_W + 4 * lane, r);
+            }
+        }
 }
 
-void kq_shared_host(long long B, int32_t* x, const int32_t* pos, int steps) {
-    for (long long b = 0; b < B; b++)
-        kq_row(x + b * PROBE_W, pos[b], steps);
+void kq_shared_host(long long B, const int32_t* x, const int32_t* pos,
+                    int steps, int32_t* out) {
+    for (long long blk = 0; blk * KQ_ROWS < B; blk++)
+        for (int w = 0; w < KQ_ROWS; w++) {
+            long long b = blk * KQ_ROWS + w;
+            if (b >= B) continue;
+            int32_t row[PROBE_W];
+            for (int lane = 0; lane < 32; lane++)
+                probe_load4(x + b * PROBE_W + 4 * lane, row + 4 * lane);
+            for (int lane = 0; lane < 32; lane++)
+                kq_pass(row, lane, pos[b], steps);
+            for (int lane = 0; lane < 32; lane++)
+                probe_store4(out + b * PROBE_W + 4 * lane, row + 4 * lane);
+        }
 }
 
+// KR as kr_launch runs it, a query at a time on the eager route (lazy 0)
+// or the lazy one (lazy 1).
 void kr_host(long long Q, const int32_t* lo, const int32_t* hi, long long N,
-             const int32_t* idx, int steps, int32_t* v, int32_t* ix) {
+             const int32_t* idx, int steps, int lazy, int32_t* v,
+             int32_t* ix) {
+    uint32_t mask = (uint32_t)(N - 1);
     for (long long q = 0; q < Q; q++)
-        kr_query(lo, hi, (uint32_t)(N - 1), idx[q], steps, v + q, ix + q);
+        (lazy ? kr_lazy_query : kr_query)(lo, hi, mask, idx[q], steps, v + q,
+                                          ix + q);
 }
 
 }  // extern "C"

@@ -27,6 +27,7 @@
 #define PROBE_GOLD 0x9E3779B9u      // -1640531527 as u32 (tpu_session_gather.py:269)
 #define PROBE_HIT (1 << 16)         // (hi ^ ix) below this is a match
 #define PROBE_PASSES 30             // KQ's one-hot passes a step
+#define KQ_ROWS 8                   // rows a KQ block, a warp a row
 
 BFC_HD uint32_t probe_next(uint32_t ix, int32_t v, uint32_t mask) {
     return (ix + (uint32_t)v) & mask;
@@ -173,38 +174,39 @@ BFC_HD void kp_lane_elem(const int32_t* row, int32_t ix0, int steps,
     *ix_out = (int32_t)ix;
 }
 
-// KQ, one row held whole (shared-memory variant): PROBE_PASSES read-
-// modify-write passes, x[(pos + i) % PROBE_W] += 1 for i < PROBE_PASSES,
-// `steps` times (tpu_probe_r2.py:158-163).
-BFC_HD void kq_row(int32_t* row, int32_t pos, int steps) {
-    for (int s = 0; s < steps; s++)
-        for (int i = 0; i < PROBE_PASSES; i++) {
-            int c = (int)((uint32_t)(pos + i) & (PROBE_W - 1));
-            row[c] = row[c] + 1;
-        }
-}
-
-// KQ, one lane's 4 columns of a row (register variant): lane j holds
-// columns 4j..4j+3, and the pass that selects one of them is applied by
-// that lane alone.  The lanes of a row never exchange values: a pass
-// touches one column.
+// KQ, the register variant: lane `lane` of a row's warp holds columns
+// 4 lane .. 4 lane + 3.  Pass i of a step adds one to column (pos + i) %
+// PROBE_W (tpu_probe_r2.py:158-163), so column c takes a pass a step
+// where (c - pos) % PROBE_W < PROBE_PASSES.  The PROBE_PASSES passes of a
+// step select distinct columns (PROBE_PASSES < PROBE_W), so they commute:
+// each is applied by the lane that holds its column, and across steps a
+// column's passes are a chain of adds in one place.
 BFC_HD void kq_lane(int32_t r[4], int lane, int32_t pos, int steps) {
-    for (int s = 0; s < steps; s++)
-        for (int i = 0; i < PROBE_PASSES; i++) {
-            int c = (int)((uint32_t)(pos + i) & (PROBE_W - 1));
-            bool mine = (c >> 2) == lane;
-            int j = c & 3;
-            r[0] += mine && j == 0;
-            r[1] += mine && j == 1;
-            r[2] += mine && j == 2;
-            r[3] += mine && j == 3;
-        }
+    uint32_t sel[4];
+    for (int c = 0; c < 4; c++)
+        sel[c] = (((uint32_t)(4 * lane + c) - (uint32_t)pos) &
+                  (PROBE_W - 1)) < PROBE_PASSES;
+    for (int s = 0; s < steps; s++)   // adds wrap, as the plain version's
+        for (int c = 0; c < 4; c++) r[c] = (int32_t)((uint32_t)r[c] + sel[c]);
 }
 
-// KR, one query (tpu_session_gather.py:sG, :262-276): slot 1 is ix, slot
-// 2 is s2 = ix * -1640531527 (wrapping) & mask; the value is lo of the
-// first slot whose hi ^ ix, as signed i32, lies below 2^16, else -1; then
-// ix = (ix + v) & mask, `steps` times.
+// KQ, the shared variant: lane `lane` < PROBE_PASSES of the row's warp
+// applies pass `lane` to the row staged in shared memory, a read-modify-
+// write of word (pos + lane) % PROBE_W, `steps` times.  The lanes' words
+// are distinct and consecutive (mod PROBE_W), so no two share a bank.
+BFC_HD void kq_pass(int32_t* row, int lane, int32_t pos, int steps) {
+    if (lane >= PROBE_PASSES) return;
+    int c = (int)(((uint32_t)pos + (uint32_t)lane) & (PROBE_W - 1));
+    for (int s = 0; s < steps; s++)
+        row[c] = (int32_t)((uint32_t)row[c] + 1);
+}
+
+// KR, the eager route, one query (tpu_session_gather.py:sG, :262-276):
+// slot 1 is ix, slot 2 is s2 = ix * -1640531527 (wrapping) & mask; the
+// value is lo of the first slot whose hi ^ ix, as signed i32, lies below
+// 2^16, else -1; then ix = (ix + v) & mask, `steps` times.  All four
+// loads are written up front; nvcc issues lo at the first slot only where
+// that slot matched (probe_two_plane.cu).
 BFC_HD void kr_query(const int32_t* lo, const int32_t* hi, uint32_t mask,
                      int32_t ix0, int steps, int32_t* v_out,
                      int32_t* ix_out) {
@@ -215,6 +217,27 @@ BFC_HD void kr_query(const int32_t* lo, const int32_t* hi, uint32_t mask,
         int32_t key = (int32_t)ix;
         int32_t l1 = lo[ix], h1 = hi[ix], l2 = lo[s2], h2 = hi[s2];
         v = (h1 ^ key) < PROBE_HIT ? l1 : (h2 ^ key) < PROBE_HIT ? l2 : -1;
+        ix = probe_next(ix, v, mask);
+    }
+    *v_out = v;
+    *ix_out = (int32_t)ix;
+}
+
+// KR, the lazy route, one query: a step loads hi at both slots, then lo
+// only at the slot that matched (none on a miss): the sectors the
+// function needs, three a step where a key sits in a slot and two on a
+// miss, in two dependent rounds.  The values are kr_query's.
+BFC_HD void kr_lazy_query(const int32_t* lo, const int32_t* hi,
+                          uint32_t mask, int32_t ix0, int steps,
+                          int32_t* v_out, int32_t* ix_out) {
+    uint32_t ix = (uint32_t)ix0 & mask;
+    int32_t v = 0;
+    for (int s = 0; s < steps; s++) {
+        uint32_t s2 = (ix * PROBE_GOLD) & mask;
+        int32_t key = (int32_t)ix;
+        int32_t h1 = hi[ix], h2 = hi[s2];
+        bool m1 = (h1 ^ key) < PROBE_HIT;
+        v = m1 || (h2 ^ key) < PROBE_HIT ? lo[m1 ? ix : s2] : -1;
         ix = probe_next(ix, v, mask);
     }
     *v_out = v;

@@ -145,11 +145,11 @@ KP = Kernel("probe_tile_gather", {
     "kp_lane_launch": [_LL, _P, _P, _I, _P, _P, _P],
 })
 KQ = Kernel("probe_onehot_passes", {
-    "kq_registers_launch": [_LL, _P, _P, _I, _P],
-    "kq_shared_launch": [_LL, _P, _P, _I, _P],
+    "kq_registers_launch": [_LL, _P, _P, _I, _P, _P],
+    "kq_shared_launch": [_LL, _P, _P, _I, _P, _P],
 })
 KR = Kernel("probe_two_plane", {
-    "kr_launch": [_LL, _P, _P, _LL, _P, _I, _P, _P, _P],
+    "kr_launch": [_LL, _P, _P, _LL, _P, _I, _I, _P, _P, _P],
 })
 KERNELS = {k.name: k for k in (KA, KB, KC, KD, KE, KF, KG, KH, KI, KJ, KK,
                                KL, KM, KN, KO, KP, KQ, KR)}

@@ -11,12 +11,14 @@ function its Pallas kernels compute (csrc/probe.cuh):
                       the chain on the row's first word), COLUMN
                       (v = tab[ix[q, l], l]) or LANE (v = tab[r, ix[r, l]]
                       within row r, the chain masked to 128)
-  onehot_passes   KQ  x[b, (pos[b] + i) % 128] += 1 for i < 30, in
-                      REGISTERS (a warp a row) or SHARED memory (a thread
-                      a row)
+  onehot_passes   KQ  x[b, (pos[b] + i) % 128] += 1 for i < 30, out of
+                      place, a warp a row, the passes applied in
+                      REGISTERS or in SHARED memory
   two_plane       KR  the cuckoo probe: lo of the first of slots ix and
                       ix * -1640531527 & (N - 1) whose hi ^ ix < 2^16,
-                      else -1; ix = (ix + v) & (N - 1)
+                      else -1; ix = (ix + v) & (N - 1); on the EAGER
+                      route (lo with the hi loads) or the LAZY one (hi at
+                      both slots, then lo only where one matched)
 
 Every gather is a dependent chain of `steps` steps, one kernel launch for
 the whole chain, and returns (the last value read, the final index); at
@@ -44,6 +46,8 @@ PASSES = 30             # PROBE_PASSES: the probes' one-hot passes a step
 ROW, COLUMN, LANE = "row", "column", "lane"
 REGISTERS, SHARED = "registers", "shared"
 GLOBAL = "global"       # KP's walk in device memory (SHARED: staged)
+EAGER, LAZY = "eager", "lazy"   # KR's routes (two_plane_route)
+KR_LAZY_QUERIES = 32768     # KR's lazy route from this many queries
 KP_COLS = 4             # csrc/probe.cuh: lanes a column-mode thread walks
 KP_STAGE_BYTES = 128 * 1024   # shared memory a KP block stages
 
@@ -219,8 +223,10 @@ def onehot_passes_plain(x, pos, steps: int = 1):
 def onehot_passes(x, pos, steps: int = 1, variant: str = REGISTERS):
     """30 one-hot passes a step, `steps` steps (kernel KQ): x[b, (pos[b]
     + i) % 128] += 1 for i < 30.  x int32 [B, 128], pos int32 [B];
-    variant REGISTERS or SHARED (where the row lives on the card).
-    Returns the updated rows (a new tensor)."""
+    variant REGISTERS or SHARED (where a row's warp applies the passes on
+    the card).  Returns the updated rows as a new tensor; x is not
+    written.  On the card one launch, which reads x and writes the
+    result once."""
     B = x.shape[0]
     dev = x.device
     _steps(steps)
@@ -230,9 +236,15 @@ def onehot_passes(x, pos, steps: int = 1, variant: str = REGISTERS):
     kernels.check(pos, "pos", torch.int32, (B,), dev)
     if dev.type == "cpu":
         return onehot_passes_plain(x, pos, steps)
-    out = x.clone()
-    kernels.KQ.launch(f"kq_{variant}_launch", B, out.data_ptr(),
-                      pos.data_ptr(), steps)
+    return _onehot_passes_card(x, pos, steps, variant)
+
+
+def _onehot_passes_card(x, pos, steps: int, variant: str):
+    """onehot_passes' launch, its inputs checked (an x off a 16-byte
+    boundary is read 4 bytes a load)."""
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    kernels.KQ.launch(f"kq_{variant}_launch", x.shape[0], x.data_ptr(),
+                      pos.data_ptr(), steps, out.data_ptr())
     return out
 
 
@@ -253,10 +265,31 @@ def two_plane_plain(lo, hi, idx, steps: int = 4) -> Pair:
     return v, _i32(ix)
 
 
+def two_plane_route(queries: int, steps: int) -> str:
+    """KR's route for `queries` chains of `steps` steps: LAZY from
+    KR_LAZY_QUERIES queries, else EAGER; a thread a query on both.  The
+    eager route (kr_query) loads hi at both slots and lo at the second in one
+    round, and lo at the first in a second round where that slot matched
+    (as nvcc builds it: cuobjdump -sass); the lazy route loads hi at both
+    slots, then lo only at the slot that matched: on a miss at both, two
+    sectors a step where the eager route reads three.  Measured with both
+    routes forced (chip_ab.py --parts kr; NVIDIA H100 80GB HBM3, 700.00
+    W): at 8,192 queries the eager route's one round wins (4 steps
+    0.0063 ms against 0.0077, 64 steps 0.0595 against 0.0867); at 32,768
+    queries over 256 MiB they tie (0.0147), and over sG's planes in L2,
+    where nearly every step misses, the lazy route takes 0.0028 ms against
+    0.0037; from 131,072 queries up to 4,194,304 both read three sectors
+    a step on cuckoo planes and run at the card's ~34 G random sectors/s,
+    the lazy route within 1% ahead.  The steps did not move the crossover
+    (8,192 queries lose at 4 and at 64)."""
+    return LAZY if queries >= KR_LAZY_QUERIES else EAGER
+
+
 def two_plane(lo, hi, idx, steps: int = 4) -> Pair:
     """The cuckoo table's two-probe, two-plane lookup as a dependent chain
     (kernel KR).  lo, hi int32 [N], N a power of two; idx int32 [Q].
-    Returns (v, ix), int32 [Q]."""
+    Returns (v, ix), int32 [Q].  On the card one launch a call, on the
+    route that two_plane_route gives."""
     N, Q = lo.shape[0], idx.shape[0]
     dev = lo.device
     _pow2(N, "table size")
@@ -266,8 +299,15 @@ def two_plane(lo, hi, idx, steps: int = 4) -> Pair:
     kernels.check(idx, "idx", torch.int32, (Q,), dev)
     if dev.type == "cpu":
         return two_plane_plain(lo, hi, idx, steps)
+    return _two_plane_card(lo, hi, idx, steps, two_plane_route(Q, steps))
+
+
+def _two_plane_card(lo, hi, idx, steps: int, route: str) -> Pair:
+    """two_plane's launch on `route`, its inputs checked."""
+    N, Q, dev = lo.shape[0], idx.shape[0], lo.device
     v = torch.empty((Q,), dtype=torch.int32, device=dev)
     ix = torch.empty((Q,), dtype=torch.int32, device=dev)
     kernels.KR.launch("kr_launch", Q, lo.data_ptr(), hi.data_ptr(), N,
-                      idx.data_ptr(), steps, v.data_ptr(), ix.data_ptr())
+                      idx.data_ptr(), steps, int(route == LAZY), v.data_ptr(),
+                      ix.data_ptr())
     return v, ix

@@ -1,12 +1,13 @@
 """A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
 KD (ec1_search), KF (bloom_adjudicate), KI (first_occurrence), KM
 (route_rows), KH (max_streak), KL (cuckoo_build), KN
-(cuckoo_build_local), KK (finalize_counts) and KP (probe_tile_gather) of
-one tree of bfc_tpu_torch on one CUDA card.
+(cuckoo_build_local), KK (finalize_counts), KP (probe_tile_gather), KQ
+(probe_onehot_passes) and KR (probe_two_plane) of one tree of
+bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
-                       [--parts main,verdicts,km,kh,kl,kn,kk,kp,paths]
+                       [--parts main,verdicts,km,kh,kl,kn,kk,kp,kq,kr,paths]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -89,13 +90,20 @@ kernel's, plain version's and library call's device ms (CUDA graphs, as
 chip_probe.py times them), the bound and the sha256 of the output; in a
 tree with KP's routes, column mode's two routes forced on the same
 inputs over an 8,192-row table, by steps, at 32, 2,048 and 8,192
-queries, each output held against the plain version.
+queries, each output held against the plain version.  KQ and KR the same
+at theirs (KQ: r2_s4a, p2_sE and sg_sF in both variants; KR: sg_sG and
+the four hbm_KR sites over 256 MiB), with the route each KR site takes;
+in a tree with KR's routes, both routes forced on sG's planes and on the
+256 MiB cuckoo planes at 8,192 to 4,194,304 queries (kr_routes), with
+the sectors each needs and issues a second and the global loads of KR's
+kernels (cuobjdump -sass).  The probe parts (kp, kq, kr) make no reads.
 Then (paths) the walls of the paths that run KH and KM, as their reports
 give them, with the outputs' sha256: the trim path (`-1 -k51`, host
 finalize) through run_device, and the main path over two gloo ranks
 sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
 rank's KM launches.  --parts picks the sections: main (the count and
-KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, kp, paths.
+KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, kp, kq, kr,
+paths.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -119,6 +127,7 @@ import importlib.util
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -157,11 +166,16 @@ VARIANTS = {
 # Bloom-block rule on the main fold
 KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
             ("bloom", 8))
-PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "kp", "paths")
+PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "kp", "kq", "kr",
+         "paths")
+PROBE_PARTS = {"kp": "KP", "kq": "KQ", "kr": "KR"}   # chip_probe.py's sites
 # KP's column routes forced on one 8,192-row table: (queries, steps)
 KP_ROUTE_ROWS = 8192
 KP_ROUTE_CASES = tuple((q, k) for q in (32, 2048, 8192)
                        for k in (1, 2, 4, 6, 8, 16))
+# KR's routes forced over the 256 MiB cuckoo planes: (queries, steps)
+KR_ROUTE_CASES = ((8192, 4), (8192, 64), (32768, 4), (131072, 4),
+                  (524288, 4), (1 << 20, 4), (1 << 22, 4))
 VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
                  ("b30", 49_804_406, 30, "random"),
                  ("b30", 49_804_406, 30, "sorted"))
@@ -569,23 +583,26 @@ def kk_cases(torch, smoke, kernels, spec, fold, opt) -> dict:
     return {"kk": r, "compaction": comp}
 
 
-def kp_cases(torch, probe_mod, kernels, dev, seed: int) -> dict:
-    """KP at its probe sites: chip_probe.run's rows (check, times, bound),
-    the route the tree's wrapper takes where it names one, and the sha256
-    of each site's output; where the tree has routes, both routes at the
-    same inputs (kp_routes)."""
+def probe_cases(torch, probe_mod, kernels, dev, seed: int, tag: str) -> dict:
+    """KP, KQ or KR (tag) at its probe sites: chip_probe.run's rows
+    (check, times, bound), the route the tree's wrapper takes where it
+    names one, and the sha256 of each site's output; where the tree has
+    routes, KP's column routes (kp_routes) and KR's (kr_routes) forced on
+    the same inputs."""
     from bfc_tpu_torch.ops import probe as P
-    sites = [s for s in probe_mod.SITES if s.kernel == "KP"]
+    sites = [s for s in probe_mod.SITES if s.kernel == tag]
     rows, launches = probe_mod.run(dev, sites=sites)
-    out = {"launches": launches[probe_mod.KERNEL["KP"]]}
+    out = {"launches": launches[probe_mod.KERNEL[tag]]}
     for s, r in zip(sites, rows):
         inp = probe_mod.make_inputs(s, dev)
         r["sha256"] = _sha(*probe_mod.kernel_call(s, inp))
         r["route"] = probe_mod.route(s) or "the first design"
         out[probe_mod.label(s)] = r
         del inp
-    if hasattr(P, "tile_route"):
+    if tag == "KP" and hasattr(P, "tile_route"):
         out["routes"] = kp_routes(torch, probe_mod, kernels, P, dev, seed)
+    if tag == "KR" and hasattr(P, "two_plane_route"):
+        out["routes"] = kr_routes(torch, probe_mod, kernels, P, dev, seed)
     torch.cuda.empty_cache()
     return out
 
@@ -621,6 +638,105 @@ def kp_routes(torch, probe_mod, kernels, P, dev, seed: int) -> dict:
             r[route] = probe_mod.graph_ms([call], GRAPH_REPS)
         out[f"column_q{Q}_s{steps}"] = r
     return out
+
+
+def kr_routes(torch, probe_mod, kernels, P, dev, seed: int) -> dict:
+    """KR's eager and lazy routes, forced on the same inputs: sG's planes (chip_probe's sg_sG site, in
+    L2) and the 256 MiB cuckoo planes (the hbm_KR sites' recipe: every key
+    in its second slot) at KR_ROUTE_CASES, fresh start indices a call
+    where the planes exceed L2 (chip_probe.start_sets).  Device ms a call
+    (CUDA graphs, as chip_probe.py times the sites), each output held
+    against the plain version, the sectors a call needs (chip_probe's
+    touched) and issues (eager, as nvcc builds kr_query: hi at both
+    slots and lo at the second a step, lo at the first where it matched;
+    lazy: hi at both slots, lo where a slot matched), each a second, and
+    the route that two_plane_route takes; and the global loads of each
+    KR kernel in the tree's library (kr_loads)."""
+    import numpy as np
+    kr = [s for s in probe_mod.SITES if s.kernel == "KR"]
+    g = next(s for s in kr if s.recipe == "planes")
+    big = next(s for s in kr if s.recipe == "cuckoo")
+    planes = probe_mod.make_inputs(big, dev)
+    cases = [(g, probe_mod.make_inputs(g, dev))]
+    rng = np.random.default_rng(seed)
+    for q, steps in KR_ROUTE_CASES:
+        s = big._replace(name=f"hbm_KR_q{q}_s{steps}", q=q, steps=steps)
+        cases.append((s, dict(planes, idx=torch.from_numpy(rng.integers(
+            0, s.n, q).astype(np.int32)).to(dev))))
+    out = {}
+    for s, inp in cases:
+        sets = probe_mod.start_sets(s, inp, dev)
+        want = probe_mod.plain_call(s, inp)
+        needed = probe_mod.work(s, sets)[1]
+        hits1, hits = (sum(h) / len(sets) for h in zip(
+            *(_kr_hits(torch, P, x, s.steps) for x in sets)))
+        got = [torch.empty_like(inp["idx"]) for _ in range(2)]
+        r = {"queries": s.q, "steps": s.steps, "table_entries": s.n,
+             "recipe": s.recipe, "start_sets": len(sets),
+             "taken": P.two_plane_route(s.q, s.steps),
+             "sectors_needed": needed}
+        for name in (P.EAGER, P.LAZY):
+            def call(x, lazy=int(name == P.LAZY)):
+                kernels.KR.launch("kr_launch", s.q, x["lo"].data_ptr(),
+                                  x["hi"].data_ptr(), s.n,
+                                  x["idx"].data_ptr(), s.steps, lazy,
+                                  got[0].data_ptr(), got[1].data_ptr())
+            call(inp)
+            torch.cuda.synchronize()
+            if any(bool((a != b).any()) for a, b in zip(got, want)):
+                raise RuntimeError(f"chip_ab: KR {name} at {s.q} queries x "
+                                   f"{s.steps} steps differs from its plain "
+                                   "version")
+            ms = probe_mod.graph_ms([lambda x=x: call(x) for x in sets],
+                                    GRAPH_REPS)
+            issued = (s.q * s.steps * 2 + hits if name == P.LAZY
+                      else s.q * s.steps * 3 + hits1)
+            r[name] = {"ms": ms, "sectors_issued": issued,
+                       "issued_per_s": issued / (ms * 1e-3),
+                       "needed_per_s": needed / (ms * 1e-3)}
+        out[s.name] = r
+        del sets, inp
+    out["loads"] = kr_loads(kernels)
+    torch.cuda.empty_cache()
+    return out
+
+
+def kr_loads(kernels) -> dict:
+    """The global loads (LDG) of each kernel in KR's library, as
+    cuobjdump -sass lists them: how many, and how many of them
+    predicated (issued only where a condition holds, as the eager route's
+    lo at the first slot is)."""
+    cuobjdump = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(kernels.KR.library)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = {"ldg": 0, "predicated": 0}
+        elif fn and "LDG" in line:
+            out[fn]["ldg"] += 1
+            out[fn]["predicated"] += "@" in line.split("LDG")[0]
+    return out
+
+
+def _kr_hits(torch, P, inp, steps: int):
+    """(steps whose first slot matched, steps that matched a slot) of a
+    KR call: the eager route's second-round lo loads, the lazy
+    route's."""
+    lo, hi = inp["lo"], inp["hi"]
+    N = lo.shape[0]
+    ix = inp["idx"].long() & (N - 1)
+    n1 = n = 0
+    for _ in range(steps):
+        s2 = (ix * P.GOLD) & (N - 1)
+        m1 = (hi[ix].long() ^ ix) < P.HIT
+        hit = m1 | ((hi[s2].long() ^ ix) < P.HIT)
+        n1 += int(m1.sum())
+        n += int(hit.sum())
+        v = torch.where(hit, lo[torch.where(m1, ix, s2)].long(), -1)
+        ix = (ix + v) & (N - 1)
+    return n1, n
 
 
 def path_walls(smoke, Opts, fq: Path, tmp: Path, tree: Path) -> dict:
@@ -677,7 +793,6 @@ def trim_host_ms(torch, smoke, bases, dev, reps: int = 20) -> float:
 def build_variants(kernels) -> dict:
     """{(variant, library): its launcher}; nvcc runs in parallel."""
     import ctypes
-    import subprocess
 
     csrc = HERE / "bfc_tpu_torch" / "csrc"
     out = HERE / "build" / "verdict_variants"
@@ -830,9 +945,10 @@ def main() -> int:
            "build_s": kernels.build_all()}
     tmp = Path(tempfile.mkdtemp(prefix="bfc_chip_ab_"))
     try:
-        bases, quals = smoke.make_reads(args.genome, args.seed)
         fq = tmp / "reads.fq"
-        smoke.write_fastq(fq, bases, quals)
+        if parts - set(PROBE_PARTS):   # the probe parts read no reads
+            bases, quals = smoke.make_reads(args.genome, args.seed)
+            smoke.write_fastq(fq, bases, quals)
         opt = Opts()
         opt.apply_genome_size(cli.parse_size("5m"))
         k, l_pre = opt.k, opt.effective_l_pre()
@@ -876,9 +992,10 @@ def main() -> int:
             if "kk" in parts:
                 rec.update(kk_cases(torch, smoke, kernels, spec, main_fold,
                                     opt))
-        if "kp" in parts:
-            rec["kp"] = kp_cases(torch, sys.modules["chip_probe"], kernels,
-                                 dev, args.seed)
+        for part, tag in PROBE_PARTS.items():
+            if part in parts:
+                rec[part] = probe_cases(torch, sys.modules["chip_probe"],
+                                        kernels, dev, args.seed, tag)
         if "paths" in parts:
             rec["paths"] = path_walls(smoke, Opts, fq, tmp, tree)
         if "verdicts" in parts:

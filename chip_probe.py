@@ -22,7 +22,8 @@ as a full cuckoo table's keys do, so each step walks to a random slot.
 
 For each site the kernel runs once (the probe path: one launch a site),
 then its output is held against its plain version on the same card
-tensors (exact equality: every value is an integer), then the kernel,
+tensors (exact equality: every value is an integer; KP's and KR's rows
+name the route their wrapper took), then the kernel,
 the plain version and the matching PyTorch library call are timed on the
 device: a CUDA graph of repeated calls (REPS, a tenth of that for the
 plain version), captured after a warm-up and replayed REPLAYS times
@@ -149,9 +150,13 @@ def label(s: Site) -> str:
 
 def route(s: Site) -> str:
     """The way a KP site's wrapper walks (ops/probe.py:tile_route, by the
-    table's rows, the steps and the queries), "" for the other kernels
-    and for a package without routes (chip_ab.py runs this file against
-    older trees too)."""
+    table's rows, the steps and the queries) or a KR site's
+    (two_plane_route, by the queries), "" for the other kernels and for a
+    package without routes (chip_ab.py runs this file against older
+    trees too)."""
+    if s.kernel == "KR":
+        kr_route = getattr(P, "two_plane_route", None)
+        return kr_route(s.q, s.steps) if kr_route else ""
     tile_route = getattr(P, "tile_route", None)
     if s.kernel != "KP" or tile_route is None:
         return ""
@@ -449,7 +454,7 @@ def run(dev, reps: int = REPS, sites: List[Site] = SITES,
     dict), which on the card must be one a site; then each site's
     output held against its plain version on the same tensors and, if
     timed, the kernel, plain and library times.  Raises on any mismatch.
-    Returns one result dict a site, with KP's route."""
+    Returns one result dict a site, with KP's and KR's route."""
     inputs = [make_inputs(s, dev) for s in sites]
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
     sync()

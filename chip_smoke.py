@@ -127,8 +127,9 @@ Phases (any failure raises; nothing is caught):
    KO-KR in every mode and variant, launch counts zeroed just before and
    read just after (each of KO-KR must have launched, once a site); each
    output held exactly against its plain version, KP's route (shared or
-   global, by the shapes and steps) printed, then timed beside its plain
-   version and the matching PyTorch library call.
+   global, by the shapes and steps) and KR's (eager or lazy, by the
+   queries) printed, then timed beside its plain version and the matching
+   PyTorch library call.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper

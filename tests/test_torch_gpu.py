@@ -416,16 +416,77 @@ def test_kp_views_off_16_bytes(card, mode, off):
 
 @pytest.mark.parametrize("variant", [probe.REGISTERS, probe.SHARED])
 def test_kq_matches_plain(card, variant):
+    """KQ at 1, 3, 16 and 32 steps over 2,050 rows (not a multiple of a
+    block's 8): one launch a call into a new tensor, x not written."""
     rng = np.random.default_rng(7)
     B = 2050
-    x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (B, 128)).astype(
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (B, 128)).astype(
         np.int32))
-    pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
-    for steps in (1, 3, 16):
+    pos = rng.integers(0, 128, B).astype(np.int32)
+    pos[:4] = [0, 97, 98, 127]
+    pos = torch.from_numpy(pos)
+    xc, pc = x.to(card), pos.to(card)
+    for steps in (1, 3, 16, 32):
         want = probe.onehot_passes(x, pos, steps, variant)
-        got = probe.onehot_passes(x.to(card), pos.to(card), steps, variant)
+        kernels.reset_launches()
+        got = probe.onehot_passes(xc, pc, steps, variant)
         torch.cuda.synchronize()
-        _eq((got.cpu(),), (want,))
+        _eq((got.cpu(), xc.cpu()), (want, x))
+        assert kernels.KQ.launches == 1
+
+
+@pytest.mark.parametrize("variant", [probe.REGISTERS, probe.SHARED])
+@pytest.mark.parametrize("off", [1, 3])
+def test_kq_views_off_16_bytes(card, variant, off):
+    """KQ on an x that starts 4 or 12 bytes past a 16-byte boundary (read
+    4 bytes a load): equal to the plain version, x not written."""
+    rng = np.random.default_rng(off)
+    B, steps = 2048, 16
+    flat = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, B * 128 + off).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
+    x = flat[off:].view(B, 128)
+    xc = flat.to(card)[off:].view(B, 128)
+    assert xc.data_ptr() % 16
+    want = probe.onehot_passes(x, pos, steps, variant)
+    got = probe.onehot_passes(xc, pos.to(card), steps, variant)
+    torch.cuda.synchronize()
+    _eq((got.cpu(), xc.cpu()), (want, x))
+
+
+def _kr_planes(card, N, seed):
+    """lo and hi over the full i32 range (a hi word with its top bit set
+    matches any key), a third of the keys j at their first slot (hi[j] =
+    j ^ r, r < 2^16) and a third at their second, made on the card."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    lo, hi = (torch.randint(-(1 << 31), 1 << 31, (N,), generator=gen,
+                            dtype=torch.int64, device=card).to(torch.int32)
+              for _ in range(2))
+    j = torch.randperm(N, generator=gen, device=card)
+    r = torch.randint(0, 1 << 16, (N,), generator=gen, device=card)
+    first, second = j[:N // 3], j[N // 3:2 * N // 3]
+    hi[first] = (first ^ r[:len(first)]).to(torch.int32)
+    s2 = (second * probe.GOLD) & (N - 1)
+    hi[s2] = (second ^ r[:len(second)]).to(torch.int32)
+    return lo, hi
+
+
+@pytest.mark.parametrize("Q", [8192, 32768, 1 << 20])
+def test_kr_routes_match_plain(card, Q):
+    """KR's eager and lazy routes, forced, over 2^25-slot planes (256
+    MiB, beyond L2), at 1, 4 and 16 steps, against the plain version on
+    the same card tensors; two_plane itself launches once, on its
+    route."""
+    N = 1 << 25
+    lo, hi = _kr_planes(card, N, Q)
+    idx = _probe_idx(np.random.default_rng(Q), Q, N).to(card)
+    for steps in (1, 4, 16):
+        want = probe.two_plane_plain(lo, hi, idx, steps)
+        for route in (probe.EAGER, probe.LAZY):
+            _eq(probe._two_plane_card(lo, hi, idx, steps, route), want)
+        kernels.reset_launches()
+        _eq(probe.two_plane(lo, hi, idx, steps), want)
+        assert kernels.KR.launches == 1
 
 
 @pytest.mark.parametrize("offset", [0, 3])

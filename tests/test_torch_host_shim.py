@@ -83,9 +83,9 @@ def shim(tmp_path_factory):
     lib.kp_row_host.argtypes = [LL, P, LL, P, I, P, P]
     lib.kp_column_host.argtypes = [LL, P, LL, P, I, I, P, P]
     lib.kp_lane_host.argtypes = [LL, P, P, I, P, P]
-    lib.kq_registers_host.argtypes = [LL, P, P, I]
-    lib.kq_shared_host.argtypes = [LL, P, P, I]
-    lib.kr_host.argtypes = [LL, P, P, LL, P, I, P, P]
+    lib.kq_registers_host.argtypes = [LL, P, P, I, P]
+    lib.kq_shared_host.argtypes = [LL, P, P, I, P]
+    lib.kr_host.argtypes = [LL, P, P, LL, P, I, I, P, P]
     for f in (lib.ko_host, lib.kp_row_host, lib.kp_column_host,
               lib.kp_lane_host, lib.kq_registers_host, lib.kq_shared_host,
               lib.kr_host):
@@ -1543,7 +1543,8 @@ def _probe_idx(rng, shape, n):
     """Start indices in [0, n), with some outside it (taken modulo n)."""
     idx = rng.integers(0, n, shape).astype(np.int32)
     flat = idx.reshape(-1)
-    flat[:4] = [-1, n, -(1 << 31), (1 << 31) - 1]
+    edges = [-1, n, -(1 << 31), (1 << 31) - 1]
+    flat[:len(edges)] = edges[:flat.size]
     return torch.from_numpy(idx)
 
 
@@ -1681,16 +1682,42 @@ def test_kq_body_matches_plain(shim, variant, steps):
         rng.integers(-(1 << 20), 1 << 20, (B, 128)).astype(np.int32))
     pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
     want = tprobe.onehot_passes_plain(x, pos, steps)
-    got = x.clone()
-    getattr(shim, f"kq_{variant}_host")(B, _p(got), _p(pos), steps)
+    got = torch.empty_like(x)
+    getattr(shim, f"kq_{variant}_host")(B, _p(x), _p(pos), steps, _p(got))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["registers", "shared"])
+@pytest.mark.parametrize("steps", [1, 16, 32])
+@pytest.mark.parametrize("B", [1, 8, 13, 2051])
+def test_kq_lanes_match_plain(shim, variant, steps, B):
+    """KQ's warps lane by lane (kq_lane: a lane's four columns; kq_pass:
+    lane i's pass on the staged row) at the probes' 1, 16 and 32 steps,
+    over B rows, not always a multiple of a block's KQ_ROWS (8): pos 127
+    (a wrap after one column), 0, 97, 98 (the last whose passes do not
+    wrap, 98 + 29 = 127), -1 and 2^31 - 1 (taken modulo 128), the rest at
+    random; x is left as it was."""
+    rng = np.random.default_rng(B + steps)
+    x = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, (B, 128)).astype(np.int32))
+    pos = rng.integers(0, 128, B).astype(np.int32)
+    edges = [127, 0, 97, 98, -1, (1 << 31) - 1]
+    pos[:len(edges)] = edges[:B]
+    pos = torch.from_numpy(pos)
+    x0 = x.clone()
+    want = tprobe.onehot_passes_plain(x, pos, steps)
+    got = torch.full_like(x, 7)
+    getattr(shim, f"kq_{variant}_host")(B, _p(x), _p(pos), steps, _p(got))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(x, x0)
+    assert int((got - x0).sum()) == 30 * steps * B
 
 
 @pytest.mark.parametrize("hi_bits", [17, 30])
 @pytest.mark.parametrize("steps", [1, 4])
 def test_kr_body_matches_plain(shim, hi_bits, steps):
-    """hi from [-2^17, 2^17): both slots often match, negative values
-    too; from [-2^30, 2^30): nearly every probe misses."""
+    """The eager route.  hi from [-2^17, 2^17): both slots often match,
+    negative values too; from [-2^30, 2^30): nearly every probe misses."""
     rng = np.random.default_rng(90 + steps + hi_bits)
     N, Q = 1 << 12, 300
     lo = torch.from_numpy(
@@ -1700,10 +1727,118 @@ def test_kr_body_matches_plain(shim, hi_bits, steps):
     idx = _probe_idx(rng, Q, N)
     want = tprobe.two_plane_plain(lo, hi, idx, steps)
     got = _empty_like(*want)
-    shim.kr_host(Q, _p(lo), _p(hi), N, _p(idx), steps,
+    shim.kr_host(Q, _p(lo), _p(hi), N, _p(idx), steps, 0,
                  *(_p(g) for g in got))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _kr_planes(rng, N):
+    """lo and hi as u32 bit patterns over the full range (a hi word with
+    its top bit set makes hi ^ ix negative: a match), with a third of the
+    keys j placed at their first slot (hi[j] = j ^ r, r < 2^16) and a
+    third at their second (hi[j * -1640531527 & (N - 1)] = j ^ r)."""
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32)
+
+    lo, hi = u32(N), u32(N)
+    j = rng.permutation(N).astype(np.uint64)
+    first, second = j[:N // 3], j[N // 3:2 * N // 3]
+    r = rng.integers(0, 1 << 16, N).astype(np.uint64)
+    hi[first] = (first ^ r[:len(first)]).astype(np.uint32)
+    s2 = (second * np.uint64(tprobe.GOLD)) & np.uint64(N - 1)
+    hi[s2] = (second ^ r[:len(second)]).astype(np.uint32)
+    return (torch.from_numpy(lo.view(np.int32)),
+            torch.from_numpy(hi.view(np.int32)))
+
+
+@pytest.mark.parametrize("steps", [1, 4, 64])
+@pytest.mark.parametrize("Q", [1, 301, 1024])
+def test_kr_lazy_route_matches_plain(shim, steps, Q):
+    """KR's lazy route (kr_lazy_query: hi at both slots, then lo at the
+    slot that matched) over u32 bit patterns, where the chains' steps hit
+    at the first slot, at the second and at neither; against
+    two_plane_plain and the eager route."""
+    rng = np.random.default_rng(Q + steps)
+    N = 1 << 12
+    lo, hi = _kr_planes(rng, N)
+    idx = _probe_idx(rng, Q, N)
+    want = tprobe.two_plane_plain(lo, hi, idx, steps)
+    for lazy in (1, 0):
+        got = [torch.full((Q,), 7, dtype=torch.int32) for _ in range(2)]
+        shim.kr_host(Q, _p(lo), _p(hi), N, _p(idx), steps, lazy,
+                     *(_p(g) for g in got))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_kr_planes_hit_both_slots_and_miss():
+    """_kr_planes gives the lazy test every case: over one step from every
+    slot, hits at the first slot (over half: a random hi word with its top
+    bit set matches any key), at the second only, and at neither."""
+    rng = np.random.default_rng(5)
+    N = 1 << 12
+    lo, hi = _kr_planes(rng, N)
+    ix = torch.arange(N, dtype=torch.int64)
+    s2 = (ix * tprobe.GOLD) & (N - 1)
+    m1 = (hi.long()[ix] ^ ix) < tprobe.HIT
+    m2 = (hi.long()[s2] ^ ix) < tprobe.HIT
+    assert int(m1.sum()) > N // 2
+    assert int((~m1 & m2).sum()) > N // 8
+    assert int((~m1 & ~m2).sum()) > N // 64
+
+
+@pytest.mark.parametrize("variant", ["registers", "shared"])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_kq_wrapper_launches_once_out_of_place(shim, monkeypatch, variant,
+                                               off):
+    """onehot_passes' card path, with the shim doing its launch: one
+    launch into a new tensor, x (also a view 4 or 12 bytes past a 16-byte
+    boundary) not written, equal to the plain version."""
+    calls = []
+
+    def launch(fn, *args):
+        calls.append(fn)
+        getattr(shim, fn.replace("_launch", "_host"))(*args)
+
+    monkeypatch.setattr(kernels.KQ, "launch", launch)
+    rng = np.random.default_rng(off)
+    B, steps = 37, 16
+    x = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, B * 128 + off).astype(np.int32))[off:]
+    x = x.view(B, 128)
+    assert (x.data_ptr() % 16 != 0) == (off != 0)
+    pos = torch.from_numpy(rng.integers(0, 128, B).astype(np.int32))
+    x0 = x.clone()
+    got = tprobe._onehot_passes_card(x, pos, steps, variant)
+    torch.testing.assert_close(
+        got, tprobe.onehot_passes_plain(x0, pos, steps), rtol=0, atol=0)
+    assert torch.equal(x, x0) and got.data_ptr() != x.data_ptr()
+    assert calls == [f"kq_{variant}_launch"]
+
+
+@pytest.mark.parametrize("Q", [300, tprobe.KR_LAZY_QUERIES])
+def test_kr_wrapper_launches_its_route(shim, monkeypatch, Q):
+    """two_plane's card path, with the shim doing its launch: one launch
+    on the route two_plane_route gives (kr_launch's lazy 0 for the eager
+    route, 1 for the lazy one), equal to the plain version."""
+    calls = []
+
+    def launch(fn, *args):
+        calls.append(args[6])
+        getattr(shim, fn.replace("_launch", "_host"))(*args)
+
+    monkeypatch.setattr(kernels.KR, "launch", launch)
+    rng = np.random.default_rng(Q)
+    N, steps = 1 << 12, 4
+    lo, hi = _kr_planes(rng, N)
+    idx = _probe_idx(rng, Q, N)
+    route = tprobe.two_plane_route(Q, steps)
+    got = tprobe._two_plane_card(lo, hi, idx, steps, route)
+    for g, w in zip(got, tprobe.two_plane_plain(lo, hi, idx, steps)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert calls == [int(route == tprobe.LAZY)]
 
 
 def _c_param_types(params: str):

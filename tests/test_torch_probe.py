@@ -568,7 +568,32 @@ def test_chip_probe_kp_routes():
     assert {chip_probe.route(s) for s in kp.values()} == {P.SHARED,
                                                           P.GLOBAL}
     assert all(chip_probe.route(s) == "" for s in chip_probe.SITES
-               if s.kernel != "KP")
+               if s.kernel not in ("KP", "KR"))
+
+
+def test_kr_route_by_shape():
+    """KR's route (two_plane_route): the lazy route (hi at both slots,
+    then lo where one matched) from KR_LAZY_QUERIES queries, where the
+    chains fill the card; the eager one (four loads in one round) below,
+    at any steps."""
+    route, n = P.two_plane_route, P.KR_LAZY_QUERIES
+    for steps in (1, 4, 64):
+        assert route(n, steps) == P.LAZY
+        assert route(1 << 22, steps) == P.LAZY
+        assert route(n - 1, steps) == P.EAGER
+        assert route(8192, steps) == P.EAGER
+        assert route(1, steps) == P.EAGER
+
+
+def test_chip_probe_kr_routes():
+    """The probe path's KR sites: sG's 32,768 queries and the 32,768- and
+    4,194,304-query sites over 256 MiB take the lazy route, the 8,192-
+    query sites (4 and 64 steps) the eager one."""
+    kr = {chip_probe.label(s): chip_probe.route(s) for s in chip_probe.SITES
+          if s.kernel == "KR"}
+    assert kr == {"sg_sG": P.LAZY, "hbm_KR_q8192": P.EAGER,
+                  "hbm_KR_q8192_k64": P.EAGER, "hbm_KR_q32768": P.LAZY,
+                  "hbm_KR_q4194304": P.LAZY}
 
 
 def _kr_inputs(hi, q=64, seed=9):

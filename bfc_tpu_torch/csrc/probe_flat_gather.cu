@@ -10,6 +10,14 @@
 // loads in flight as it has resident threads, which is what the TPU's DMA
 // slots emulate.  The chain is KD's pattern of one probe feeding the next.
 //
+// The order of the loads matters beyond L2: 4,194,304 start indices over
+// 2^26 entries read 29.3 G sectors/s as drawn and 57.5 G/s sorted (NVIDIA
+// H100 80GB HBM3, 700.00 W; chip_ab.py --parts ko, "order").  A route that
+// keeps the chains grouped by region of the table pays a binning and a
+// read and write of its pairs a step for that, and won only from ~12
+// steps with a chain for every 16 entries, a shape no probe site has.
+// Blocks of 32-128 threads did not shorten a step at 8,192 chains.
+//
 // Bound: bytes.  The table's 32-byte sectors that the chains read, one an
 // access where the table exceeds the 50 MB L2, each distinct one once
 // where it fits (chip_probe.py:touched); plus indices and outputs.  Each

@@ -1,13 +1,13 @@
 """A/B measurement of KA (kmer_stream), KB (run_combine), KC (kcov_island),
 KD (ec1_search), KF (bloom_adjudicate), KI (first_occurrence), KM
 (route_rows), KH (max_streak), KL (cuckoo_build), KN
-(cuckoo_build_local), KK (finalize_counts), KP (probe_tile_gather), KQ
-(probe_onehot_passes) and KR (probe_two_plane) of one tree of
-bfc_tpu_torch on one CUDA card.
+(cuckoo_build_local), KK (finalize_counts), KO (probe_flat_gather), KP
+(probe_tile_gather), KQ (probe_onehot_passes) and KR (probe_two_plane)
+of one tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
-                       [--parts main,verdicts,km,kh,kl,kn,kk,kp,kq,kr,paths]
+                       [--parts main,verdicts,km,kh,kl,kn,kk,ko,kp,kq,kr,paths]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -96,14 +96,17 @@ the four hbm_KR sites over 256 MiB), with the route each KR site takes;
 in a tree with KR's routes, both routes forced on sG's planes and on the
 256 MiB cuckoo planes at 8,192 to 4,194,304 queries (kr_routes), with
 the sectors each needs and issues a second and the global loads of KR's
-kernels (cuobjdump -sass).  The probe parts (kp, kq, kr) make no reads.
+kernels (cuobjdump -sass).  KO the same at its eleven sites, and the
+order of its loads (ko_order: 4,194,304 start indices over the 256 MiB
+table as drawn, sorted and by regions, at 1 and 4 steps).  The probe
+parts (ko, kp, kq, kr) make no reads.
 Then (paths) the walls of the paths that run KH and KM, as their reports
 give them, with the outputs' sha256: the trim path (`-1 -k51`, host
 finalize) through run_device, and the main path over two gloo ranks
 sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
 rank's KM launches.  --parts picks the sections: main (the count and
-KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, kp, kq, kr,
-paths.
+KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, ko, kp, kq,
+kr, paths.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -166,9 +169,10 @@ VARIANTS = {
 # Bloom-block rule on the main fold
 KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
             ("bloom", 8))
-PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "kp", "kq", "kr",
-         "paths")
-PROBE_PARTS = {"kp": "KP", "kq": "KQ", "kr": "KR"}   # chip_probe.py's sites
+PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "ko", "kp", "kq",
+         "kr", "paths")
+PROBE_PARTS = {"ko": "KO", "kp": "KP", "kq": "KQ",
+               "kr": "KR"}   # chip_probe.py's sites
 # KP's column routes forced on one 8,192-row table: (queries, steps)
 KP_ROUTE_ROWS = 8192
 KP_ROUTE_CASES = tuple((q, k) for q in (32, 2048, 8192)
@@ -176,6 +180,11 @@ KP_ROUTE_CASES = tuple((q, k) for q in (32, 2048, 8192)
 # KR's routes forced over the 256 MiB cuckoo planes: (queries, steps)
 KR_ROUTE_CASES = ((8192, 4), (8192, 64), (32768, 4), (131072, 4),
                   (524288, 4), (1 << 20, 4), (1 << 22, 4))
+# KO over the 256 MiB table: the order of 4,194,304 start indices (as
+# drawn, sorted, and by regions of 2^shift entries, random within one) at
+# 1 and 4 steps
+KO_ORDER_STEPS = (1, 4)
+KO_ORDER_SHIFTS = (10, 14, 18)
 VARIANT_FOLDS = (("b33", 63_109_113, 33, "random"),
                  ("b30", 49_804_406, 30, "random"),
                  ("b30", 49_804_406, 30, "sorted"))
@@ -599,10 +608,59 @@ def probe_cases(torch, probe_mod, kernels, dev, seed: int, tag: str) -> dict:
         r["route"] = probe_mod.route(s) or "the first design"
         out[probe_mod.label(s)] = r
         del inp
+    if tag == "KO":
+        out["order"] = ko_order(torch, probe_mod, P, dev)
     if tag == "KP" and hasattr(P, "tile_route"):
         out["routes"] = kp_routes(torch, probe_mod, kernels, P, dev, seed)
     if tag == "KR" and hasattr(P, "two_plane_route"):
         out["routes"] = kr_routes(torch, probe_mod, kernels, P, dev, seed)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ko_order(torch, probe_mod, P, dev) -> dict:
+    """Does the order in which a step's loads are issued move the card's
+    random-sector rate?  The tree's flat_gather over the 256 MiB table of
+    the hbm_KO sites with the same 4,194,304 start indices as drawn
+    ("random"), sorted ("sorted"), and by regions of 2^shift entries,
+    random within a region ("region_<shift>"), at KO_ORDER_STEPS.  At
+    one step the sorted call is the ceiling of any route that issues a
+    step's loads in address order.  Fresh start indices a call
+    (chip_probe.start_sets), each ordered the same way; device ms a call
+    (CUDA graphs), sectors a second (one an access), each output held
+    against the plain version; and the distinct 32-byte sectors and
+    64-byte pairs of sectors the first step touches."""
+    big = next(s for s in probe_mod.SITES if s.name == "hbm_KO_q4194304")
+    inp = probe_mod.make_inputs(big, dev)
+    tab = inp["tab"]
+    out = {}
+    for steps in KO_ORDER_STEPS:
+        s = big._replace(steps=steps)
+        sets = probe_mod.start_sets(s, inp, dev)
+        orders = {"random": lambda i: i, "sorted": lambda i: i.sort()[0]}
+        for shift in KO_ORDER_SHIFTS:
+            orders[f"region_{shift}"] = lambda i, sh=shift: i[torch.sort(
+                i >> sh, stable=True)[1]]
+        r = {"queries": s.q, "steps": steps, "start_sets": len(sets)}
+        for name, order in orders.items():
+            idxs = [order(x["idx"]) for x in sets]
+            got = P.flat_gather(tab, idxs[0], steps)
+            want = P.flat_gather_plain(tab, idxs[0], steps)
+            if any(bool((a != b).any()) for a, b in zip(got, want)):
+                raise RuntimeError(f"chip_ab: KO {name} at {steps} steps "
+                                   "differs from its plain version")
+            ms = probe_mod.graph_ms(
+                [lambda i=i: P.flat_gather(tab, i, steps) for i in idxs],
+                GRAPH_REPS)
+            r[name] = {"ms": ms,
+                       "sectors_per_s": s.q * steps / (ms * 1e-3)}
+        ix = sets[0]["idx"].long()
+        r["distinct_sectors"] = int(torch.unique(ix >> 3).numel())
+        r["distinct_64b"] = int(torch.unique(ix >> 4).numel())
+        r["sorted_speedup"] = r["random"]["ms"] / r["sorted"]["ms"]
+        out[f"steps_{steps}"] = r
+        del sets
+    del inp, tab
     torch.cuda.empty_cache()
     return out
 

@@ -3,7 +3,8 @@ card (KA and KC also on rows of 600 slots and on a batch that is not a
 multiple of a block's warps; KH also on 600 slots and on reads ending
 short of their rows; KB and KM at their tile edges, KM at 1 to 256
 ranks; KD with reads deferred to its second pass; KK at odd row counts
-and unaligned inputs; KP at the probe sites' shapes and on both routes),
+and unaligned inputs; KO over 2^20 and 2^26 entries and on chains that
+converge on one entry; KP at the probe sites' shapes and on both routes),
 the trim path and
 the device finalize on the card against the same
 paths on the CPU (also at -b35, KF's from arrival 0 and KI's from 2^33),
@@ -339,6 +340,36 @@ def test_ko_kr_match_plain(card, steps):
         got = fn(*(a.to(card) for a in args), steps=steps)
         torch.cuda.synchronize()
         _eq([g.cpu() for g in got], want)
+
+
+@pytest.fixture(scope="module")
+def ko_tables(card):
+    """KO's tables on the card: 2^20 and 2^26 (the hbm_KO sites' 256 MiB)
+    random entries, and 2^20 entries that send every chain to entry 0
+    after its first step (tab[j] = -j, so ix + tab[ix] = 0)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    tabs = {n: torch.randint(0, 1 << 32, (1 << n,), generator=gen,
+                             dtype=torch.int64, device=card).to(torch.int32)
+            for n in (20, 26)}
+    tabs["converging"] = -torch.arange(1 << 20, dtype=torch.int32,
+                                       device=card)
+    return tabs
+
+
+@pytest.mark.parametrize("table", [20, 26, "converging"])
+@pytest.mark.parametrize("steps", [1, 4, 64])
+@pytest.mark.parametrize("Q", [8192, 262144])
+def test_ko_matches_plain_at_sizes(card, ko_tables, table, steps, Q):
+    """KO on the card, one launch a call, equal to its plain version on
+    the same card tensors."""
+    tab = ko_tables[table]
+    rng = np.random.default_rng(Q + steps)
+    idx = _probe_idx(rng, Q, tab.shape[0]).to(card)
+    kernels.reset_launches()
+    got = probe.flat_gather(tab, idx, steps)
+    torch.cuda.synchronize()
+    assert kernels.KO.launches == 1
+    _eq(got, probe.flat_gather_plain(tab, idx, steps))
 
 
 @pytest.mark.parametrize("mode", [probe.ROW, probe.COLUMN, probe.LANE])

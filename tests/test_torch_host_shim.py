@@ -1566,6 +1566,45 @@ def test_ko_body_matches_plain(shim, steps):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+# one query; a table of 2 entries; tables of 2^10 to 2^20; steps 1, 4
+# and 64; query counts off a multiple of the 256-thread block
+@pytest.mark.parametrize("Q,n,steps", [
+    (1, 10, 1), (1, 10, 64), (5, 1, 4), (257, 10, 64), (1000, 12, 4),
+    (5000, 16, 64), (3000, 20, 1), (3000, 20, 4), (3000, 20, 64)])
+def test_ko_body_at_shapes(shim, Q, n, steps):
+    """ko_query over tables and chains of many sizes, start indices -1,
+    N, -2^31 and 2^31 - 1 among them (taken modulo N)."""
+    rng = np.random.default_rng(Q + n + steps)
+    N = 1 << n
+    tab = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, N).astype(np.int32))
+    idx = _probe_idx(rng, Q, N)
+    want = tprobe.flat_gather_plain(tab, idx, steps)
+    got = _empty_like(*want)
+    shim.ko_host(Q, _p(tab), N, _p(idx), steps, *(_p(g) for g in got))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("target", ["first", "last"])
+@pytest.mark.parametrize("steps", [1, 4, 64])
+def test_ko_body_converging_chains(shim, target, steps):
+    """Chains that all converge on one entry after their first step:
+    tab[j] = -j sends every index to 0, tab[j] = N - 1 - j to N - 1."""
+    rng = np.random.default_rng(steps)
+    N, Q = 1 << 12, 9000
+    j = np.arange(N)
+    tab = torch.from_numpy(
+        (-j if target == "first" else N - 1 - j).astype(np.int32))
+    idx = _probe_idx(rng, Q, N)
+    want = tprobe.flat_gather_plain(tab, idx, steps)
+    assert bool((want[1] == (0 if target == "first" else N - 1)).all())
+    got = _empty_like(*want)
+    shim.ko_host(Q, _p(tab), N, _p(idx), steps, *(_p(g) for g in got))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("mode", ["row", "column", "lane"])
 @pytest.mark.parametrize("steps", [1, 16])
 def test_kp_body_matches_plain(shim, mode, steps):

@@ -8,12 +8,15 @@ asks for the CPU, where every kernel's plain version runs instead.
 CLI as a mesh and passes rank 0's stdout through; with
 BFC_TPU_SHARD_TABLE=1 and N a power of two each rank holds only its
 sub-table of the spectrum.  Trim mode (-1) ignores the mesh, -d and -r,
-as bfc_tpu's CLI does.  Modes that later slices of the port bring raise
-NotImplementedError naming their ROADMAP item.
+as bfc_tpu's CLI does.  --scalar, and -V4 (whose per-read search trace
+only the scalar model prints), run the scalar pipeline on the host
+(models/pipeline.py) and start no ranks; --profile DIR writes a
+torch.profiler trace of the device run into DIR, a file a rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import getopt
 import sys
 from typing import List, Optional
@@ -24,7 +27,7 @@ from .utils import log as ulog
 
 VERSION = f"torch-{__version__}(r181-compat)"
 SHORT_OPTS = "hvV:Ed:k:s:b:L:t:C:H:q:Jr:c:w:D1QR"
-LONG_OPTS = ["batch=", "cpu", "mesh="]
+LONG_OPTS = ["batch=", "cpu", "scalar", "mesh=", "profile="]
 
 
 def usage(fp, o: Opts) -> None:
@@ -48,7 +51,9 @@ def usage(fp, o: Opts) -> None:
     fp.write("Device options:\n")
     fp.write("  --batch INT     reads per correction batch [65536] (trim: [8192])\n")
     fp.write("  --cpu           run on the CPU (the kernels' plain versions)\n")
+    fp.write("  --scalar        use the scalar reference model (debug)\n")
     fp.write("  --mesh INT      shard over INT devices\n")
+    fp.write("  --profile DIR   write a torch.profiler trace of the run to DIR\n")
 
 
 def parse_size(s: str) -> int:
@@ -68,11 +73,6 @@ def parse_size(s: str) -> int:
     return int(x) + 1
 
 
-def _not_in_slice(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def main(argv: Optional[List[str]] = None,
          report: Optional[dict] = None) -> int:
     """Run the CLI; report, where given, receives run_device's report."""
@@ -83,6 +83,8 @@ def main(argv: Optional[List[str]] = None,
     no_ec = False
     batch_reads = None
     device = "cuda"
+    use_scalar = False
+    profile_dir = None
     mesh = 1
     in_hash = out_hash = None
     ulog.reset_clock()
@@ -110,7 +112,7 @@ def main(argv: Optional[List[str]] = None,
         elif flag == "-w":
             opt.win_multi_ec = int(val)
         elif flag == "-R":
-            _not_in_slice("-R (refine)", "8")
+            opt.refine_ec = True
         elif flag == "-D":
             opt.discard = True
         elif flag == "-1":
@@ -124,8 +126,6 @@ def main(argv: Optional[List[str]] = None,
         elif flag == "-V":
             opt.verbose = int(val)
             ulog.verbosity = opt.verbose
-            if opt.verbose >= 4:
-                _not_in_slice("-V4 (search trace)", "8")
         elif flag == "-k":
             opt.k = int(val)
             sys.stderr.write(f"[M::main] set k to {opt.k}\n")
@@ -144,11 +144,34 @@ def main(argv: Optional[List[str]] = None,
             batch_reads = int(val)
         elif flag == "--cpu":
             device = "cpu"
+        elif flag == "--scalar":
+            use_scalar = True
         elif flag == "--mesh":
             mesh = int(val)
+        elif flag == "--profile":
+            profile_dir = val
     if not args:
         usage(sys.stderr, opt)
         return 1
+
+    if opt.verbose >= 4 and not use_scalar:
+        # the per-read search trace (correct.c:284-287 etc.) exists only in
+        # the scalar engine; output is byte-identical either way, so -V4
+        # routes through it to reproduce the reference's debugging hook
+        sys.stderr.write("[M::main] -V4 search trace: using the scalar engine\n")
+        use_scalar = True
+    if use_scalar:
+        from .models import pipeline as P
+        from .models import refmodel as _rm
+
+        _rm.verbose = opt.verbose
+        sys.stdout.write(P.run(opt, args[0],
+                               correct_fn=args[1] if len(args) > 1 else None,
+                               in_hash=in_hash, out_hash=out_hash,
+                               no_ec=no_ec))
+        _epilogue(argv)
+        return 0
+
     in_mesh = comm.active()
     if in_mesh and mesh not in (1, comm.size()):
         raise ValueError(f"--mesh {mesh} in a mesh of {comm.size()} ranks")
@@ -159,15 +182,48 @@ def main(argv: Optional[List[str]] = None,
 
     from .models import device_pipeline as DP
 
-    # stream records to stdout as batches finish (O(batch) memory, the
-    # reference's pipeline behavior)
-    DP.run_device(opt, args[0], correct_fn=args[1] if len(args) > 1 else None,
-                  no_ec=no_ec, batch_reads=batch_reads,
-                  sink=sys.stdout.buffer, device=device, report=report,
-                  in_hash=in_hash, out_hash=out_hash)
+    with _profiled(profile_dir, device, comm.rank() if in_mesh else 0):
+        # stream records to stdout as batches finish (O(batch) memory,
+        # the reference's pipeline behavior)
+        DP.run_device(opt, args[0],
+                      correct_fn=args[1] if len(args) > 1 else None,
+                      no_ec=no_ec, batch_reads=batch_reads,
+                      sink=sys.stdout.buffer, device=device, report=report,
+                      in_hash=in_hash, out_hash=out_hash)
+    _epilogue(argv)
+    return 0
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: str, rank: int):
+    """torch.profiler over the run (CPU activity, and the card's where the
+    run is on one), written as a Chrome trace, trace.rank<rank>.json, into
+    profile_dir: bfc_tpu's --profile (cli.py:181-194) with
+    jax.profiler."""
+    if not profile_dir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device != "cpu":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        if device != "cpu":
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(profile_dir, f"trace.rank{rank}.json"))
+    sys.stderr.write(f"[M::main] profiler trace written to {profile_dir}\n")
+
+
+def _epilogue(argv: List[str]) -> None:
     sys.stderr.write(f"[M::main] Version: {VERSION}\n")
     sys.stderr.write("[M::main] CMD: bfc-tpu-torch " + " ".join(argv) + "\n")
     sys.stderr.write(
         f"[M::main] Real time: {ulog.realtime():.3f} sec; CPU: {ulog.cputime():.3f} sec\n"
     )
-    return 0

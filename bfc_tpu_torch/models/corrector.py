@@ -61,7 +61,7 @@ class BatchResult:
         st = M.EcStat(
             ec_code=0, brute=brute,
             n_ec=(a >> 18) & 0x3FFF, n_ec_high=(a >> 4) & 0x3FFF,
-            n_absent=a2 >> 10, rf_code=0, max_heap=a2 & 0xFF,
+            n_absent=a2 >> 10, rf_code=(a2 >> 8) & 3, max_heap=a2 & 0xFF,
         )
         ln = int(self.lens[i])
         s2 = self.seq_rows[i, :ln].tobytes().decode("ascii")
@@ -70,17 +70,20 @@ class BatchResult:
         return (st, s2, q2)
 
 
-def assemble(packed: np.ndarray, out: np.ndarray):
+def assemble(packed: np.ndarray, out: np.ndarray, refine: bool = False):
     """KD's packed bases and stat columns -> (seq_rows, qual_rows, aux,
     aux2, code), packed exactly as worker_ec does (correct.c:451-459,
-    552-553); a failed read keeps only brute | code."""
+    552-553); a failed read keeps only brute | code.  Under -R a code
+    above 4 (a refine-substituted base, correct.c:31) is written as N,
+    as the scalar model's reverse complements leave it (refmodel.py:
+    seq_revcomp), and aux2 carries rf_code 3 (refined) or 1 (failed)."""
     U = np.uint64
-    fb = packed & 7
+    fb = np.minimum(packed & 7, 4)
     isd = (packed & 8) != 0
     seq_rows = np.where(isd, np.frombuffer(b"acgtn", np.uint8)[fb],
                         np.frombuffer(b"ACGTN", np.uint8)[fb])
     qual_rows = np.where(
-        isd, 34 + (packed >> 5),
+        isd, 34 + np.minimum(packed >> 5, 4),
         np.frombuffer(b"+?", np.uint8)[((packed >> 4) & 1).astype(np.int32)])
     code = out[:, srch.EC_CODE].astype(np.int64)
     ok = code == 0
@@ -91,6 +94,8 @@ def assemble(packed: np.ndarray, out: np.ndarray):
     aux2_ok = ((out[:, srch.N_ABSENT].astype(U) << U(10))
                | (out[:, srch.MAX_HEAP].astype(U) & U(0xFF)))
     aux2 = np.where(ok, aux2_ok, U(0))
+    if refine:
+        aux2 |= np.where(ok, U(3 << 8), U(1 << 8))
     return seq_rows, qual_rows, aux, aux2, code
 
 
@@ -103,6 +108,7 @@ class Corrector:
         self.device = ds.table.device
         self.n_fallback = 0
         self.t_device = 0.0  # host seconds in device_step (KC + KD + copies)
+        self.refine_counts = None  # under -R, refine.RefineCounts
         # host copy of the table for the scalar fallback, made at the
         # first overflow; a sharded table's sub-tables are pulled through
         # this rank's mappings of its peers', with no collective
@@ -122,9 +128,18 @@ class Corrector:
         thr = min(max(33 + opt.q, 0), 256)
         qflag = (rawq0[:, :L] >= thr if thr < 256
                  else np.zeros((n, L), bool))
+        inb = np.arange(L)[None, :] < np.asarray(lens0)[:, None]
         if not has_q.all():  # FASTA reads: every base in the read counts
-            inb = np.arange(L)[None, :] < lens0[:, None]
             qflag = np.where(has_q[:, None], qflag, inb)
+        if opt.refine_ec:
+            # -R: a quality at most '&' carries the base bfc wrote before
+            # correcting it, as (q - 34) & 7 (bfc_seq_conv, correct.c:
+            # 23-37; bfc_tpu's corrector.py:939-943), so codes 4-7 reach
+            # KC and KD; the raw bytes are 0 only past a read's end or
+            # where it has no quality
+            enc = (rawq0[:, :L] <= 38) & has_q[:, None] & inb
+            sub = ((rawq0[:, :L].astype(np.int16) - 34) & 7).astype(np.uint8)
+            bases = np.where(enc, sub, bases)
         qflag &= bases <= 3
         dev = self.device
         b_t = torch.from_numpy(bases).to(dev)
@@ -144,7 +159,8 @@ class Corrector:
         text of read i, needed only for the scalar fallback."""
         n = len(lens0)
         packed, out = self.device_step(bases0, rawq0, lens0, has_q)
-        seq_rows, qual_rows, aux, aux2, code = assemble(packed, out)
+        seq_rows, qual_rows, aux, aux2, code = assemble(
+            packed, out, self.opt.refine_ec)
         exceptional = {}
         for i in np.nonzero(out[:, srch.OVERFLOW])[0]:
             if self._probe is None:

@@ -10,6 +10,7 @@ native formatter.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -24,6 +25,7 @@ from ..ops.spectrum import ShardedTable
 from ..opts import Opts
 from ..parallel import comm, peer
 from ..utils.log import log
+from . import refine as RF
 from .corrector import BatchResult, Corrector
 from .counter import (DeviceSpectrum, count_file_device, device_finalize_on,
                       restore_spectrum)
@@ -48,7 +50,8 @@ def resolve_device(device=None) -> torch.device:
 def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
                         batch_reads: int = srch.CORRECT_BATCH,
                         mesh: bool = False) -> Corrector:
-    """Correct fn batch by batch and write the records in input order.
+    """Correct (under -R refine, models/refine.py) fn batch by batch and
+    write the records in input order.
     A batch is one launch of KC and one of KD: at most batch_reads reads,
     and the reader ends it where its 4 MB block of text ends (search.py:
     CORRECT_BATCH says why the default is not smaller).
@@ -62,6 +65,10 @@ def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
 
     R, r = (comm.size(), comm.rank()) if mesh else (1, 0)
     corr = Corrector(opt, ds)
+    carry = None
+    if opt.refine_ec:
+        carry = RF.RefineCarry()
+        corr.refine_counts = RF.RefineCounts()
     n_done = 0
     t_corr = t_emit = 0.0
     for rb in FR.iter_batches_prefetch(fn, batch_reads, max_bases=opt.chunk_size):
@@ -71,7 +78,14 @@ def correct_file_device(fn: str, opt: Opts, ds: DeviceSpectrum, out,
         dst = OutputWriter(None) if mesh else out
         t0 = time.time()
         res = None
-        if b > a:
+        if carry is not None:
+            # -R: every rank reads the whole batch's tags, so the stats
+            # carried into its rows are right
+            tags = RF.parse_tags(rb, carry)
+            corr.refine_counts.tags_s += time.time() - t0
+            if b > a:
+                RF.refine_rows(corr, rb, tags, a, b, dst)
+        elif b > a:
             res = corr.correct_arrays(
                 rb.bases[a:b], rb.quals[a:b], rb.lens[a:b],
                 rb.has_qual()[a:b],
@@ -136,7 +150,7 @@ def _emit_rb_native(rb, res: BatchResult, opt: Opts, out, a: int = 0) -> bool:
         p(lens, ctypes.c_int32),
         p(aux, ctypes.c_uint64), p(aux2, ctypes.c_uint64),
         p(mode, ctypes.c_ubyte),
-        buf, cap,
+        buf, cap, None, None, None,
     )
     if ret < 0:
         raise RuntimeError("fastx_format: output buffer too small")
@@ -184,7 +198,11 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     verdict ran, and counts: for correction the read and k-mer counts,
     the spectrum and the number of reads corrected by the scalar
     fallback; for trim the reads kept and dropped, the k-mers kept, the
-    set bits of the Bloom filter and the filter itself.
+    set bits of the Bloom filter and the filter itself.  Under -R
+    (opt.refine_ec) it also holds `refine` (refine.RefineCounts: reads
+    skipped, refined, reverted and failed, and host seconds of the tags,
+    the bookkeeping and the emit) and device_s, the host seconds of KC
+    and KD's steps.
 
     in_hash restores the spectrum from a bfc -r dump instead of
     counting (opt.k then becomes the dump's k); out_hash dumps it (-d).
@@ -293,6 +311,9 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
             if sharded:
                 report.update(cb_local=ds.table.cb_local,
                               entries_by_rank=ds.entries_by_rank)
+            if corr is not None and corr.refine_counts is not None:
+                report.update(refine=dataclasses.asdict(corr.refine_counts),
+                              device_s=corr.t_device)
         if mesh:
             _report_ranks(report, n_fallback)
     if sink is not None:

@@ -111,6 +111,14 @@ def get_lib():
             ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
             ctypes.POINTER(ctypes.c_ubyte),
             ctypes.c_char_p, ctypes.c_long,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_char_p,
+        ]
+        lib.fastx_parse_tags.restype = None
+        lib.fastx_parse_tags.argtypes = [
+            ctypes.c_long, ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64),
         ]
         _lib = lib
     except Exception:

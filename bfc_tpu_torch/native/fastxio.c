@@ -146,11 +146,15 @@ long fastx_parse(
  * string assembly on the hot path.
  *
  * mode[i] bits: 0-1 = source (0 corrected rows, 1 original text from
- * buf, 3 drop), bit 2 = FASTQ (emit qual).  aux/aux2 are the packed
- * stats exactly as worker_ec packs them (correct.c:552-553); the
- * header tag is "ec:Z:<code>" plus, when code==0, the underscore
- * stats suffix.  Returns bytes written, or -1 if cap would overflow
- * (caller sizes cap from an exact upper bound, so -1 is a bug). */
+ * buf, 2 original text under its original comment, 3 drop), bit 2 =
+ * FASTQ (emit qual).  aux/aux2 are the packed stats exactly as worker_ec
+ * packs them (correct.c:552-553); the header tag is "ec:Z:<code>" plus,
+ * when code==0, the underscore stats suffix.  Source 2 is a read that
+ * -R skips (correct.c:542-545): its comment is comm_len[i] bytes at buf
+ * + comm_off[i], or at cbuf where comm_off[i] < 0 (a comment inherited
+ * from an earlier block); comm_off may be NULL when no row has source 2.
+ * Returns bytes written, or -1 if cap would overflow (caller sizes cap
+ * from an exact upper bound, so -1 is a bug). */
 
 static char *fmt_u64(char *p, uint64_t v) {
     char tmp[20];
@@ -172,7 +176,8 @@ long fastx_format(
     const int32_t *lens,
     const uint64_t *aux, const uint64_t *aux2,
     const unsigned char *mode,
-    char *outp, long cap)
+    char *outp, long cap,
+    const int64_t *comm_off, const int32_t *comm_len, const char *cbuf)
 {
     char *p = outp, *end = outp + cap;
     long i;
@@ -180,14 +185,24 @@ long fastx_format(
         int src = mode[i] & 3;
         int is_fq = (mode[i] >> 2) & 1;
         long len = lens[i];
+        long clen = src == 2 ? comm_len[i] : 0;
         uint64_t code = aux[i] & 7;
         if (src == 3) continue;                     /* dropped (-D) */
-        if (p + name_len[i] + 2 * len + 96 > end) return -1;
+        if (p + name_len[i] + clen + 2 * len + 96 > end) return -1;
         *p++ = is_fq ? '@' : '>';
         memcpy(p, buf + name_off[i], (size_t)name_len[i]);
         p += name_len[i];
-        *p++ = '\t'; *p++ = 'e'; *p++ = 'c'; *p++ = ':'; *p++ = 'Z'; *p++ = ':';
-        p = fmt_u64(p, code);
+        *p++ = '\t';
+        if (src == 2) {
+            memcpy(p, comm_off[i] >= 0 ? buf + comm_off[i] : cbuf,
+                   (size_t)clen);
+            p += clen;
+            src = 1;
+            code = 1;                               /* no stats suffix */
+        } else {
+            *p++ = 'e'; *p++ = 'c'; *p++ = ':'; *p++ = 'Z'; *p++ = ':';
+            p = fmt_u64(p, code);
+        }
         if (code == 0) {
             *p++ = '_';
             p = fmt_u64(p, aux2[i] >> 10);          /* n_absent */
@@ -216,6 +231,54 @@ long fastx_format(
         }
     }
     return (long)(p - outp);
+}
+
+/* The ec:Z tags of a batch under -R (parse_stats, correct.c:517-531, as
+ * bfc_tpu_torch/models/pipeline.py:parse_stats reads them), one row of
+ * TAG_COLS int64 a record: is_tag (the comment starts "ec:Z:"), odd,
+ * ec_code, n_absent, max_heap, brute, n_ec, n_ec_high; the last five
+ * are read only when ec_code is 0 and the tag holds six numbers, else
+ * 0.  A comment with a byte outside ASCII is odd whether it is a tag or
+ * not.  The tag after "ec:Z:" is cut into numbers at every character that
+ * is neither a digit nor a '-' opening a number, an empty number being
+ * 0.  A row is odd (its other columns unset) where that reading needs
+ * Python: a lone '-' or a number of more than 18 characters.  Rows with
+ * comm_len < 0 have no comment. */
+#define TAG_COLS 8
+void fastx_parse_tags(long n, const char *buf, const int64_t *comm_off,
+                      const int32_t *comm_len, int64_t *out)
+{
+    long i;
+    for (i = 0; i < n; i++) {
+        int64_t *o = out + i * TAG_COLS, nums[6] = {0, 0, 0, 0, 0, 0};
+        const unsigned char *c = (const unsigned char *)buf + comm_off[i];
+        long len = comm_len[i], j, n_nums = 0, cur = 0;
+        int64_t v = 0;
+        int neg = 0, odd = 0;
+        memset(o, 0, TAG_COLS * sizeof(int64_t));
+        for (j = 0; j < len; j++)
+            if (c[j] >= 128) o[1] = 1;              /* not ASCII */
+        if (o[1] || len < 5 || memcmp(c, "ec:Z:", 5) != 0) continue;
+        o[0] = 1;
+        for (j = 5; j <= len && !odd; j++) {
+            int ch = j < len ? c[j] : -1;           /* -1: the end */
+            if (ch >= '0' && ch <= '9') {
+                if (++cur > 18) odd = 1;
+                else v = v * 10 + (ch - '0');
+            } else if (ch == '-' && cur == 0 && !neg) {
+                neg = 1;
+            } else if (ch >= 0 || cur || neg) {     /* a number ends */
+                if (neg && !cur) odd = 1;           /* int("-") */
+                if (n_nums < 6) nums[n_nums] = neg ? -v : v;
+                n_nums++;
+                cur = 0, v = 0, neg = 0;
+            }
+        }
+        o[1] = odd;
+        o[2] = n_nums ? nums[0] : 0;
+        if (o[2] == 0 && n_nums >= 6)
+            for (j = 1; j < 6; j++) o[2 + j] = nums[j];
+    }
 }
 
 /* Filter/trim-mode batch formatter (correct.c:596-611 with

@@ -91,6 +91,12 @@ def ec1_read_plain(opt: Opts, probe, mode: int, s: List[M.EcBase],
         start = end - k
         out[BRUTE] = 1
 
+    # the forward codes and input codes, which the reverse complements
+    # below fold to 4 above 3: KD keeps a code of 5-7 (a refine-substituted
+    # base) where neither direction wrote the position (kd_b)
+    fwd = [c.b for c in s]
+    ob = [c.ob for c in s]
+
     def direction(ec, st):
         stats = M.SearchStats()
         rv, mh = M.ec1dir(opt, probe, s, ec, st, n, stats)
@@ -118,15 +124,15 @@ def ec1_read_plain(opt: Opts, probe, mode: int, s: List[M.EcBase],
     for i in range(n):
         e0, e1 = ec0[i].b, ec1[i].b
         if e0 == e1:
-            fb = s[i].b if e0 > 3 else e0
+            fb = fwd[i] if e0 > 3 else e0
         elif e1 > 3:
             fb = e0
         elif e0 > 3:
             fb = e1
         else:
-            fb = s[i].ob
+            fb = ob[i]
         final.append(fb)
-        if fb != s[i].ob:
+        if fb != ob[i]:
             out[N_EC] += 1
             out[N_EC_HIGH] += s[i].q
     out[N_ABSENT] = rv0 + rv1

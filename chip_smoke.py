@@ -2,8 +2,9 @@
 kernels, drives the count + correct main path and the trim path (-1) at
 E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
-(-d/-r), then the probe path (chip_probe.py), and holds every kernel
-against its plain PyTorch version.
+(-d/-r), then the probe path (chip_probe.py), -R over the main path's
+output and a --profile run, and holds every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -130,6 +131,31 @@ Phases (any failure raises; nothing is caught):
    global, by the shapes and steps) and KR's (eager or lazy, by the
    queries) printed, then timed beside its plain version and the matching
    PyTorch library call.
+16. -R, as `python -m bfc_tpu_torch -s 5m -R reads.fq corrected.fq` runs it
+   with the device finalize: run_device counting the 3,000,000 reads and
+   refining phase 2's output, launch counts zeroed just before and read
+   just after: KA and KB must have launched and KE not.  Every record of
+   that output has had ec_code 0 and max_heap below 50, so -R skips all
+   of them and the output must equal its input (where one is not
+   skipped, KC and KD must have launched instead).  Then the same over phase 2's
+   output with its tags mangled (every third dropped, every seventh other
+   one foreign, a '!' quality in every fourteenth: mangle_tags), where
+   KA, KB, KC and KD must have launched and KE not.  Its output must hold
+   one record per input record, 1,000 seeded records (half of them among
+   those whose own comment is no skipped tag) must equal the scalar
+   model's refine of the same input records byte for byte
+   (pipeline.correct_read: refmodel.ec1 with the comment each record
+   inherits and the stats carried to it, on the same table), and at most
+   0.1% of the reads sent to KC and KD may fall back to the scalar model.
+   Printed for both: the shares of reads skipped, refined, reverted and
+   failed; the walls of counting, KC + KD, the host bookkeeping and the
+   emit; the correction's peak.
+17. --profile: the CLI on the card (`-s 5m --profile DIR`, in this
+   process) over the first 80,000 reads.  The trace must exist and hold
+   CUDA kernel events of KC and KD (they launch through ctypes), and the
+   output must hash as the same run's without --profile.  Printed: the
+   kernels the trace holds and the share of the traced wall in which the
+   card ran one.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -153,6 +179,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -1464,6 +1491,215 @@ def probe_kernel_rows(probe_rows, launches):
     return rows
 
 
+def mangle_tags(src: Path, dst: Path) -> None:
+    """src's records with their tags mangled as tests/test_torch_refine.py
+    does at small scale: every third record loses its comment (it
+    inherits the one before and the stats carried), every seventh other
+    one takes the foreign comment xx:Z:foo (refined against the stats
+    carried), and every fourteenth of those a quality of '!' at a seeded
+    place (base code 7 for KC and KD)."""
+    lines = src.read_bytes().split(b"\n")
+    for i in range(0, len(lines) - 3, 4):
+        r = i // 4
+        if r % 3 == 0:
+            lines[i] = lines[i].split(b"\t")[0]
+        elif r % 7 == 0:
+            lines[i] = lines[i].split(b"\t")[0] + b"\txx:Z:foo"
+            if r % 14 == 0:
+                q = bytearray(lines[i + 3])
+                q[(r * 37) % len(q)] = ord("!")
+                lines[i + 3] = bytes(q)
+    dst.write_bytes(b"\n".join(lines))
+
+
+def refine_line(rep, launches, n_reads: int, opt, what: str) -> str:
+    c = rep["refine"]
+    book = c["tags_s"] + c["book_s"]
+    return (f"-R (k={opt.k}, -b{opt.bf_shift}, device finalize) over {what}: "
+            f"skipped {c['skipped'] / n_reads:.4%}, refined "
+            f"{c['refined'] / n_reads:.4%}, reverted "
+            f"{c['reverted'] / n_reads:.4%}, failed "
+            f"{c['failed'] / n_reads:.4%} of {n_reads} reads; walls: "
+            f"counting {rep['count_s']:.2f} s, correction "
+            f"{rep['correct_s']:.2f} s = KC + KD {rep['device_s']:.2f} s (host "
+            f"clock, copies included), host bookkeeping {book:.2f} s (tags "
+            f"{c['tags_s']:.2f}, the rest {c['book_s']:.2f}), emit "
+            f"{c['emit_s']:.2f} s, reader and the rest "
+            f"{rep['correct_s'] - rep['device_s'] - book - c['emit_s']:.2f} s; "
+            f"correction peak {rep['correct_peak_bytes'] / 2**30:.2f} GiB; "
+            f"scalar fallback {rep['n_fallback']} reads; launches {launches}")
+
+
+def check_refine_runs(opt, fq: Path, out_fq: Path, tmp: Path, n_reads: int,
+                      seed: int):
+    """Phase 16: -R over the main path's output as it is, then over it
+    with its tags mangled.  Returns the second run's launch counts."""
+    refined = tmp / "refined.fq"
+    rep, launches, _ = drive(opt, fq, refined, device_finalize=True,
+                             correct_fn=str(out_fq))
+    need_launched(launches, ("kmer_stream", "run_combine"), "-R")
+    need_silent(launches, ("pack_pull",), "-R")
+    if rep["refine"]["skipped"] == n_reads:
+        if file_hash(refined) != file_hash(out_fq):
+            fail("-R skipped every record but changed one")
+        how = "every record skipped and written as it came"
+    else:
+        need_launched(launches, ("kcov_island", "ec1_search"), "-R")
+        how = "records not skipped went through KC and KD"
+    print(refine_line(rep, launches, n_reads, opt, "the main path's output")
+          + f"; {how}", flush=True)
+    mangled = tmp / "corrected_mangled.fq"
+    mangle_tags(out_fq, mangled)
+    rep, launches, _ = drive(opt, fq, refined, device_finalize=True,
+                             correct_fn=str(mangled))
+    need_launched(launches, ("kmer_stream", "run_combine", "kcov_island",
+                             "ec1_search"), "-R")
+    need_silent(launches, ("pack_pull",), "-R")
+    c = rep["refine"]
+    sent = c["refined"] + c["reverted"] + c["failed"]
+    if c["skipped"] + sent != n_reads:
+        fail(f"-R accounted for {c['skipped'] + sent} of {n_reads} reads")
+    if rep["n_fallback"] > sent * 0.001:
+        fail(f"-R: {rep['n_fallback']} of the {sent} reads sent to KC and "
+             "KD fell back to the scalar model, above 0.1%")
+    t0 = time.time()
+    n_sent = check_refine_output(refined, mangled, n_reads, opt,
+                                 rep["spectrum"], seed)
+    print(refine_line(rep, launches, n_reads, opt, "it with tags mangled")
+          + f"; {SAMPLE_READS} sampled records byte-identical to the scalar "
+          f"model's refine ({n_sent} of them sent to KC and KD; check "
+          f"{time.time() - t0:.1f} s)", flush=True)
+    refined.unlink()
+    mangled.unlink()
+    return launches
+
+
+def check_refine_output(out_fq: Path, in_fq: Path, n_reads: int, opt, ds,
+                        seed: int) -> int:
+    """Record count, then SAMPLE_READS input records refined by the scalar
+    model (pipeline.correct_read) on the same table, each with the comment
+    it inherits and the stats carried to it, formatted as the emit formats
+    them: half of them drawn from the records whose own comment is not a
+    tag -R skips.  Returns how many of them were not skipped."""
+    from bfc_tpu_torch.models import pipeline as P
+
+    lines = out_fq.read_bytes().split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()
+    if len(lines) != 4 * n_reads:
+        fail(f"-R: {len(lines) // 4} records out for {n_reads} in")
+    inp = in_fq.read_bytes().split(b"\n")
+    heads = inp[0:4 * n_reads:4]
+
+    def comment(j):  # kseq's stale comment: the last one at or before j
+        while j >= 0:
+            name, tab, c = heads[j].decode().partition("\t")
+            if tab:
+                return c
+            j -= 1
+        return None
+
+    def carried(j):  # ori_st: the stats of the last tag at or before j
+        while j >= 0:
+            c = comment(j)
+            if c is not None and c.startswith("ec:Z:"):
+                return P.parse_stats(c[5:])
+            j -= 1
+        return M.EcStat(ec_code=0)
+
+    skips = re.compile(rb"\tec:Z:0_\d+:(\d+)_")
+    sent = [i for i, h in enumerate(heads)
+            if not ((m := skips.search(h)) and int(m.group(1)) < 50)]
+    rng = np.random.default_rng(seed + 16)
+    half = min(SAMPLE_READS // 2, len(sent))
+    idx = set(rng.choice(sent, half, replace=False).tolist()) if half else set()
+    while len(idx) < SAMPLE_READS:
+        idx.add(int(rng.integers(n_reads)))
+    probe = IntProbe(ds.table)
+    differ = n_sent = 0
+    for i in sorted(idx):
+        seq, qual = inp[4 * i + 1].decode(), inp[4 * i + 3].decode()
+        r = Read(name=heads[i].decode()[1:].partition("\t")[0],
+                 comment=comment(i), seq=seq, qual=qual)
+        P.correct_read(opt, probe, ds.mode, r, carried(i))
+        n_sent += r.comment is None
+        w = OutputWriter()
+        format_corrected(r, opt.no_qual, False, opt.discard, w)
+        differ += w.getbytes().split(b"\n")[:4] != lines[4 * i:4 * i + 4]
+    if differ:
+        fail(f"-R: {differ} of {SAMPLE_READS} sampled records differ from "
+             "the scalar model's refine")
+    return n_sent
+
+
+def run_cli(argv, out: Path) -> None:
+    """cli.main in this process with its stdout in out."""
+    import io
+
+    saved = sys.stdout
+    with open(out, "wb") as f:
+        sys.stdout = io.TextIOWrapper(f, write_through=True)
+        try:
+            if cli.main(argv) != 0:
+                fail(f"the CLI {argv} failed")
+        finally:
+            sys.stdout.flush()
+            sys.stdout.detach()
+            sys.stdout = saved
+
+
+def busy_share(events) -> float:
+    """The share of the traced span in which the card ran a kernel."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def check_profile(head: Path, tmp: Path) -> None:
+    """Phase 17: `-s 5m --profile DIR` over the first HEAD_READS reads on
+    the card; the trace holds KC's and KD's kernels, and the output
+    hashes as the same run's without --profile."""
+    pdir = tmp / "profile"
+    plain, prof = tmp / "head_plain.fq", tmp / "head_profiled.fq"
+    t0 = time.time()
+    run_cli(["-s", "5m", str(head)], plain)
+    t1 = time.time()
+    kernels.reset_launches()
+    run_cli(["-s", "5m", "--profile", str(pdir), str(head)], prof)
+    t2 = time.time()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    need_launched(launches, ("kcov_island", "ec1_search"), "--profile")
+    if file_hash(prof) != file_hash(plain):
+        fail("the output under --profile differs from the run without it")
+    trace_file = pdir / "trace.rank0.json"
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    by = {}
+    for e in kern:
+        nm = e["name"].split("(")[0].split("<")[0].split()[-1]
+        by[nm] = by.get(nm, 0) + 1
+    for name in ("kc_kernel", "kd_kernel"):
+        if not by.get(name):
+            fail(f"the --profile trace holds no {name} event (kernels "
+                 f"seen: {by})")
+    host = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    span = (max(e["ts"] + e["dur"] for e in host)
+            - min(e["ts"] for e in host))
+    print(f"--profile over {HEAD_READS} reads: trace "
+          f"{trace_file.stat().st_size} bytes, {len(events)} events, "
+          f"{len(kern)} kernel events {by}; the card ran a kernel in "
+          f"{busy_share(kern) / span:.2%} of the traced span "
+          f"({span / 1e6:.2f} s); walls {t1 - t0:.2f} s plain, "
+          f"{t2 - t1:.2f} s profiled; output byte-identical to the run "
+          f"without --profile; launches {launches}", flush=True)
+    for f in (plain, prof, trace_file):
+        f.unlink()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome", type=int, default=5_000_000,
@@ -1531,8 +1767,7 @@ def main() -> int:
         print(f"output: {n_reads} records; {SAMPLE_READS} sampled records "
               f"byte-identical to refmodel.ec1 ({n_corr} of them corrected)",
               flush=True)
-        main_hash = file_hash(out_fq)
-        out_fq.unlink()
+        main_hash = file_hash(out_fq)  # kept for -R (phase 16)
 
         # ---- the counting against plain versions
         t0 = time.time()
@@ -1935,10 +2170,22 @@ def main() -> int:
         print(f"probe path: {len(probe_rows)} sites equal to their plain "
               f"versions; launches {probe_launches}; "
               f"{time.time() - t0:.1f} s", flush=True)
+
+        # ---- -R over the main path's output (phase 16)
+        ropt = Opts()
+        ropt.apply_genome_size(cli.parse_size("5m"))
+        ropt.refine_ec = True
+        flaunches = check_refine_runs(ropt, fq, out_fq, tmp, n_reads,
+                                      args.seed)
+        out_fq.unlink()
+        torch.cuda.empty_cache()
+
+        # ---- --profile (phase 17)
+        check_profile(head, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    paths = {"main": launches, "trim": tlaunches,
+    paths = {"main": launches, "trim": tlaunches, "refine": flaunches,
              "main_device_finalize": dlaunches,
              "trim_device_finalize": dtlaunches,
              "trim_device_finalize_from_2^33": ftlaunches,

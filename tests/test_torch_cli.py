@@ -1,12 +1,19 @@
 """The port's CLI surface: host formatting flags and FASTA input against
 bfc_tpu's scalar spec (models/pipeline.run), byte for byte; the card-or-
 --cpu rule of the entry points; trim mode (-1) with -Q, -D and a second
-file; and the modes not ported yet (-d/-r are tests/test_torch_sharded.py's).
+file (-d/-r are tests/test_torch_sharded.py's, -R
+tests/test_torch_refine.py's).  Then the host routes: -V4 (stdout and the
+search trace against `python -m bfc_tpu -V4`), --scalar in correct, -1,
+-d and -r modes against bfc_tpu's scalar pipeline (the same function
+`bfc_tpu --scalar` runs), --profile on the CPU, and gzip and stdin input.
 
 The input is a tests/datagen.py dataset with 1% N bases, so -D drops
 reads (a 12 kb genome, 1,500 reads of 100 bp, 1% errors), as FASTQ and as
-FASTA.  Tolerance: byte equality."""
+FASTA; the host routes and the inputs take a smaller one (a 2 kb genome,
+500 reads, k = 17, -b20).  Tolerance: byte equality."""
 
+import gzip
+import json
 import os
 import subprocess
 import sys
@@ -25,13 +32,14 @@ from . import datagen
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _port_cli(*args) -> bytes:
+def _port_cli(*args, stdin=None, stderr=False, cpu=True):
     # one intra-op thread: the plain versions' small ops lose to thread
     # start-up beside the suite's other workers, and the bytes do not change
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-m", "bfc_tpu_torch", "--cpu", *args],
-                       cwd=ROOT, env=env, capture_output=True, check=True)
-    return r.stdout
+    r = subprocess.run([sys.executable, "-m", "bfc_tpu_torch",
+                        *(["--cpu"] if cpu else []), *args], cwd=ROOT,
+                       env=env, capture_output=True, check=True, stdin=stdin)
+    return (r.stdout, r.stderr) if stderr else r.stdout
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +100,108 @@ def test_trim_flags_match_scalar_spec(noisy, flags, files):
     assert (mine[:1] == b">") == (o.no_qual or files[-1] == "fa")
 
 
-@pytest.mark.parametrize("flag", [["-R"], ["-V4"]])
-def test_modes_outside_the_slice_name_their_roadmap_item(flag, noisy):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cli.main([*flag, "--cpu", noisy["fq"]])
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli_small")
+    fq = datagen.standard_dataset(str(d), genome_len=2000, n_reads=500,
+                                  name="small.fq")
+    return {"fq": fq, "dir": d}
+
+
+def _jopts(**kw):
+    o = JOpts()
+    o.k, o.bf_shift = 17, 20
+    for key, v in kw.items():
+        setattr(o, key, v)
+    return o
+
+
+def _trace_lines(stderr: bytes):
+    """The -V4 search trace: the lines that start with a space or '*'
+    (tests/test_cli.py:_trace_lines)."""
+    return [ln for ln in stderr.splitlines()
+            if ln.startswith(b" ") or ln.startswith(b"*")]
+
+
+def test_v4_trace_matches_bfc_tpu(small):
+    """-V4 takes the scalar pipeline in both packages, saying so."""
+    mine, err = _port_cli("-k17", "-b20", "-V4", small["fq"], stderr=True)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-m", "bfc_tpu", "-k17", "-b20",
+                        "-V4", small["fq"]], cwd=ROOT, env=env,
+                       capture_output=True, check=True)
+    assert mine == r.stdout and mine.count(b"\n") == 4 * 500
+    line = b"[M::main] -V4 search trace: using the scalar engine"
+    assert line in err.splitlines() and line in r.stderr.splitlines()
+    trace = _trace_lines(err)
+    assert trace == _trace_lines(r.stderr) and len(trace) > 1000
+
+
+@pytest.mark.parametrize("mode", ["correct", "mesh", "trim", "dump",
+                                  "restore"])
+def test_scalar_matches_bfc_tpu_scalar(small, tmp_path, mode):
+    """--scalar needs no device and starts no ranks under --mesh; -d
+    writes bfc_tpu's scalar dump, and -r restores a dump written by
+    bfc_tpu's scalar pipeline."""
+    fq = small["fq"]
+    if mode in ("correct", "mesh"):
+        mesh = ["--mesh", "2"] if mode == "mesh" else []
+        assert _port_cli("--scalar", *mesh, "-k17", "-b20", fq,
+                         cpu=False) == JP.run(_jopts(), fq).encode()
+    elif mode == "trim":
+        assert _port_cli("--scalar", "-1", "-k17", "-b20", fq) == JP.run(
+            _jopts(filter_mode=True), fq).encode()
+    elif mode == "dump":
+        mine, want = tmp_path / "mine.dump", tmp_path / "want.dump"
+        out = _port_cli("--scalar", "-k17", "-b20", "-E", "-d", str(mine), fq)
+        JP.run(_jopts(), fq, out_hash=str(want), no_ec=True)
+        assert out == b"" and mine.read_bytes() == want.read_bytes()
+    else:
+        dump = tmp_path / "j.dump"
+        JP.run(_jopts(), fq, out_hash=str(dump), no_ec=True)
+        assert _port_cli("--scalar", "-r", str(dump), fq) == JP.run(
+            JOpts(), fq, in_hash=str(dump)).encode()
+
+
+def test_profile_on_cpu_writes_a_trace(small, tmp_path):
+    """--profile DIR: a Chrome trace of the run in DIR, stdout unchanged."""
+    d = tmp_path / "prof"
+    mine, err = _port_cli("-k17", "-b20", "--profile", str(d), small["fq"],
+                          stderr=True)
+    assert mine == _port_cli("-k17", "-b20", small["fq"])
+    trace = json.loads((d / "trace.rank0.json").read_text())
+    assert len(trace["traceEvents"]) > 100
+    assert f"[M::main] profiler trace written to {d}".encode() in err
+
+
+def test_profile_under_mesh_writes_a_trace_a_rank(small, tmp_path):
+    d = tmp_path / "prof"
+    mine = _port_cli("--mesh", "2", "-k17", "-b20", "--profile", str(d),
+                     small["fq"])
+    assert mine == _port_cli("-k17", "-b20", small["fq"])
+    assert sorted(p.name for p in d.iterdir()) == ["trace.rank0.json",
+                                                   "trace.rank1.json"]
+
+
+@pytest.mark.parametrize("trim", [False, True], ids=["correct", "trim"])
+@pytest.mark.parametrize("form", ["gz", "stdin_file", "stdin"])
+def test_gzip_and_stdin_match_bfc_tpu(small, trim, form):
+    """A .gz input reads as the plain file; `- reads.fq < reads.fq` counts
+    stdin and corrects (trims) the file; a lone `-` counts stdin and finds
+    it consumed for the second pass, so nothing is written, as
+    bfc_tpu's run_device does (its scalar pipeline raises on the closed
+    stream)."""
+    fq = small["fq"]
+    flags = ["-1"] if trim else []
+    want = JP.run(_jopts(filter_mode=trim), fq).encode()
+    if form == "gz":
+        gz = Path(small["dir"]) / "small.fq.gz"
+        if not gz.exists():
+            gz.write_bytes(gzip.compress(Path(fq).read_bytes()))
+        assert _port_cli(*flags, "-k17", "-b20", str(gz)) == want
+        return
+    args = ["-", fq] if form == "stdin_file" else ["-"]
+    with open(fq, "rb") as f:
+        mine = _port_cli(*flags, "-k17", "-b20", *args, stdin=f)
+    assert mine == (want if form == "stdin_file" else b"")
+    assert want.count(b"\n") > 4 * 100

@@ -482,6 +482,48 @@ def test_kd_deferred_reads_match_plain(shim, spectrum, caps):
     assert int((probes[searched] > 0).sum()) > 100
 
 
+def _refine_codes(bases, qf, seed):
+    """The batch as -R gives it to KC and KD: in a third of the reads one
+    to three bases become codes 4-7 (a quality of '!' to '&' substituted,
+    Corrector.device_step), quality flag off there, within the many-N
+    gate's 5%."""
+    rng = np.random.default_rng(seed)
+    b, q = bases.clone(), qf.clone()
+    for i in range(0, b.shape[0], 3):
+        for j in rng.choice(100, int(rng.integers(1, 4)), replace=False):
+            b[i, j] = int(rng.integers(4, 8))
+            q[i, j] = False
+    return b, q
+
+
+@pytest.mark.parametrize("caps", [(tsrch.HEAP_CAP, tsrch.STACK_CAP), (24, 120)],
+                         ids=["main-caps", "tiny-caps"])
+def test_kc_kd_bodies_match_plain_on_refine_codes(shim, spectrum, caps):
+    """Codes 5-7 reach KC and KD only under -R.  KC takes every code above
+    3 as an N; KD keeps a code of 5-7 where neither direction wrote the
+    position, as its plain version now does, and assemble writes it as
+    N (tests/test_torch_refine.py holds the records to the scalar model)."""
+    opt, ds, bases, qf, lens = spectrum
+    t = ds.table
+    bases, qf = _refine_codes(bases, qf, seed=opt.k)
+    want_kc = tann.kcov_island_plain(t, bases, lens, opt.min_cov)
+    got_kc = _kc_host(shim, t, bases, lens, opt.min_cov)
+    for name, w, g in zip(("occ", "lcov", "hcov", "isl"), want_kc, got_kc):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    _, lcov, hcov, isl = want_kc
+    want = tsrch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens, lcov,
+                                  hcov, isl, *caps)
+    got = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl,
+                   *caps)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    packed, out = want
+    kept = (packed & 7) > 4
+    fixed = ((packed >> 5) > 4) & ((packed & 8) != 0)
+    assert bool(kept.any()) and not bool((packed[kept] & 8).any())
+    assert int(fixed.sum()) > 20
+
+
 @pytest.fixture(scope="module")
 def spectrum63(tmp_path_factory):
     """The spectrum fixture's reads at k = 63 (four u64 planes a state)."""

@@ -219,13 +219,18 @@ def build_all() -> float:
 
 def device_free_bytes(dev) -> int:
     """Device bytes a new allocation can take: the free memory that
-    cudaMemGetInfo reports plus what PyTorch's caching allocator holds
-    unused."""
+    cudaMemGetInfo reports plus what PyTorch's caching allocator holds in
+    segments it does not use at all.  The free blocks split off segments
+    still in use (inactive_split_bytes) are not counted: they are
+    fragments that a large allocation may not fit, and counting them let
+    a merge pass the spill rule and then run out of memory."""
     import torch
 
     free, _ = torch.cuda.mem_get_info(dev)
-    return (free + torch.cuda.memory_reserved(dev)
-            - torch.cuda.memory_allocated(dev))
+    stats = torch.cuda.memory_stats(dev)
+    return (free + stats.get("reserved_bytes.all.current", 0)
+            - stats.get("allocated_bytes.all.current", 0)
+            - stats.get("inactive_split_bytes.all.current", 0))
 
 
 def check(t, name: str, dtype, shape, device) -> None:

@@ -2,15 +2,17 @@
 
 Counterpart of bfc_tpu/models/counter.py: read batches stream through
 kernel KA, the sort and kernel KB into sorted runs; runs fold into a
-binary-counter merge tree that stays on the card.  By default finish
-pulls the aggregate to the host once (KE), where the Bloom
-first-occurrence adjudication and the cuckoo table build run
+binary-counter merge tree on the card (ops/lsm.py), which spills whole
+stream spans to a host merge tree where a merge would not fit the card.
+By default finish pulls the aggregate to the host once (KE), where the
+Bloom first-occurrence adjudication and the cuckoo table build run
 (spectrum_host, numpy and C), and the table goes back to the card as one
 int64 tensor.  With the device finalize (BFC_TPU_DEVICE_FINALIZE=1, or
 device_finalize=True) the folded run stays on the card and KJ, KF or KI,
-KK and KL finalize it there.  Reproduces the reference counting pass
-(count.c:127-157) under sequential stream order (bfc -t1).  A spectrum
-is dumped to and restored from bfc's -d/-r file format (htab.c:129-176).
+KK and KL finalize it there; a spilled aggregate goes back to the card
+for them.  Reproduces the reference counting pass (count.c:127-157)
+under sequential stream order (bfc -t1).  A spectrum is dumped to and
+restored from bfc's -d/-r file format (htab.c:129-176).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import os
 import struct
 import time
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ from ..ops import kmer as kops
 from ..ops import spectrum as spec
 from ..ops import spectrum_dense as sdn
 from ..ops import spectrum_host as sph
+from ..ops.lsm import LsmTree
 from ..utils.log import log
 
 
@@ -205,23 +208,72 @@ def spectrum_from_compact(shard: np.ndarray, keybody: np.ndarray,
                           verdict)
 
 
+def merge_cap() -> Optional[int]:
+    """The row cap of a merge on the card: BFC_TPU_MAX_MERGE_CAP, bfc_tpu's
+    own variable (counter.py:251-253, mesh.py:436), where set; else None.
+    bfc_tpu's default of 2^22 rows was sized for a TPU v5e's memory, so
+    unset means no row cap here: the byte rule alone decides."""
+    v = os.environ.get("BFC_TPU_MAX_MERGE_CAP", "")
+    return int(v) if v else None
+
+
+def merge_on_card(rows_a: int, rows_b: int, need_bytes: int,
+                  free_bytes: Optional[int], cap: Optional[int]) -> bool:
+    """The spill rule: a merge of runs of rows_a and rows_b rows runs on the
+    card only where max(rows_a, rows_b) <= cap (None: no cap) and the
+    merge's peak, need_bytes (sdn.merge_bytes), is at most free_bytes
+    (kernels.device_free_bytes; None on the CPU: no limit).  Decided
+    before the merge, never by catching an allocation failure."""
+    if cap is not None and max(rows_a, rows_b) > cap:
+        return False
+    return free_bytes is None or need_bytes <= free_bytes
+
+
 class AggBuilder:
     """Incremental per-distinct-k-mer aggregation over padded batches.
 
-    Binary-counter merge tree on the device: level i holds the run of
-    2^i batches, so the total merge work is O(distinct * log batches).
-    The aggregate crosses to the host once, in finish().  Arrival order
-    across add() calls must be the stream order."""
+    The counting tree of bfc_tpu's AggBuilder (counter.py:244-310,
+    450-459, 573-617) on ops.lsm.LsmTree: a binary counter of merges on
+    the card, level i holding the run of 2^i batches, so the total merge
+    work is O(distinct * log batches).  A merge that the spill rule
+    (merge_on_card) keeps off the card makes the tree spill: the device
+    levels drain, oldest first, to a host binary counter of whole stream
+    spans (merge_host_aggs).  Each spilled span is packed by KE on the
+    pushing thread; two worker threads copy it to the host and merge it
+    there while the stream goes on, allocating nothing on the card.  BFC_TPU_EAGER_SPILL (default 1)
+    also spills, as soon as it forms, a run of more than the row cap's
+    rows, which can never merge on the card again (eager_min =
+    eager_min_after = the cap); without a row cap there is no eager
+    spill, since the byte rule cannot say in advance which run is dead.
+    spills and spilled_rows count the spilled spans and their rows, and
+    host_merge_rows the input rows of the host merges.
 
-    def __init__(self, opt: Opts, device):
+    spill=False (each rank of the mesh) keeps every merge on the card and
+    raises where one does not fit.  Arrival order across add() calls must
+    be the stream order."""
+
+    def __init__(self, opt: Opts, device, spill: bool = True):
         self.opt = opt
         self.device = torch.device(device)
         self.k = opt.k
         self.l_pre = opt.effective_l_pre()
+        self.kb_bits = kops.keybody_bits(self.k, self.l_pre)
         self.carry = not sdn.ret_derivable(self.k, self.l_pre)
         self.arrival_base = 0
         self.n_batches = 0
-        self.tree: List[Tuple[int, sdn.Run]] = []  # (level, run), oldest first
+        self.spill = spill
+        self.cap = merge_cap() if spill else None
+        self.spills = 0
+        self.spilled_rows = 0
+        self.host_merge_rows = 0
+        eager = (self.cap is not None
+                 and os.environ.get("BFC_TPU_EAGER_SPILL", "1") == "1")
+        eager_min = self.cap if eager else 0
+        self.tree = LsmTree(
+            merge=self._merge_bounded, stage=self._spill_stage,
+            to_host=self._spill_pull, host_merge=self._host_merge,
+            async_spill=True, name="AggBuilder", size=len,
+            eager_min=eager_min, eager_min_after=eager_min)
 
     def add(self, bases: np.ndarray, qok: np.ndarray, lens: np.ndarray) -> None:
         B, L = bases.shape
@@ -236,62 +288,141 @@ class AggBuilder:
     def add_run(self, run: sdn.Run) -> None:
         """Push the run of the next stream span into the tree."""
         self.n_batches += 1
-        level = 0
-        while self.tree and self.tree[-1][0] == level:
-            _, older = self.tree.pop()
-            run = self._merge(older, run)
-            level += 1
-        self.tree.append((level, run))
+        self.tree.push(run)
+
+    def _merge_bounded(self, a: sdn.Run, b: sdn.Run) -> Optional[sdn.Run]:
+        """LsmTree's merge: a (the earlier span) and b merged on the card
+        where merge_on_card allows it, else None (the tree spills), or a
+        raise with the spill off."""
+        need = sdn.merge_bytes(a, b)
+        free = self._free_bytes()
+        if merge_on_card(len(a), len(b), need, free, self.cap):
+            return self._merge(a, b)
+        if self.spill:
+            log(f"merge of {len(a)} + {len(b)} rows stays off the card "
+                f"(cap {self.cap} rows, needs {need} bytes, {free} free): "
+                "spilling", func="AggBuilder")
+            return None
+        raise RuntimeError(
+            f"counting merge of {len(a)} + {len(b)} rows needs {need} device "
+            f"bytes, {free} free: the mesh's spill is ROADMAP Queue 1 item 9b")
+
+    def _free_bytes(self) -> Optional[int]:
+        """The spill rule's free bytes: kernels.device_free_bytes on the
+        card, None (no limit) on the CPU.  Only the pushing thread
+        allocates on the card (KE's outputs are made in _spill_stage), so
+        the bytes free here are still free when the merge runs."""
+        if self.device.type != "cuda":
+            return None
+        return kernels.device_free_bytes(self.device)
 
     def _merge(self, a: sdn.Run, b: sdn.Run) -> sdn.Run:
-        if self.device.type == "cuda":
-            free = kernels.device_free_bytes(self.device)
-            need = sdn.merge_bytes(a, b)
-            if need > free:
-                raise RuntimeError(
-                    f"counting merge of {len(a)} + {len(b)} rows needs "
-                    f"{need} device bytes, {free} free: the host spill path "
-                    "is ROADMAP Queue 1 item 9")
         return sdn.merge_runs(a, b)
 
     def fold(self) -> Optional[sdn.Run]:
-        """Merge the tree, newest first, into one run on the card."""
-        acc: Optional[sdn.Run] = None
-        while self.tree:
-            _, older = self.tree.pop()
-            acc = older if acc is None else self._merge(older, acc)
+        """Merge the tree into one run on the card; for a tree that did not
+        spill (the mesh's ranks), else this raises: finish takes it."""
+        acc, host = self.tree.finish()
+        if host is not None:
+            raise RuntimeError("the counting tree spilled to the host: "
+                               "AggBuilder.finish returns its aggregate")
         return acc
 
-    def pull(self, run: sdn.Run) -> sph.HostAgg:
+    def pull(self, run: sdn.Run, with_ret: bool = True) -> sph.HostAgg:
         """The run on the host: packed by KE while arrivals stay below
         2^47 (bfc_tpu's _run_to_host, counter.py:501), unpacked above.
-        Logs the transfer (pack included) and the host unpack apart."""
+        ret is derived where the run does not carry it, unless with_ret
+        is False."""
+        return self._to_host(self._pack(run), with_ret)
+
+    def _pack(self, run: sdn.Run):
+        """The card's part of a pull: (packed, columns, rows, done), the
+        columns packed by KE where arrivals allow it, and done an event
+        after KE on the card (None on the CPU)."""
+        packed = self.arrival_base < sdn.PACK_ARRIVAL_LIMIT
+        cols = sdn.pack_pull(run) if packed else run
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return packed, cols, len(run), done
+
+    def _to_host(self, staged, with_ret: bool) -> sph.HostAgg:
+        """The host's part of a pull: copy _pack's columns and unpack them.
+        Allocates nothing on the card.  Logs the copy and the unpack
+        apart."""
+        packed, cols, _, done = staged
         t0 = time.time()
-        if self.arrival_base < sdn.PACK_ARRIVAL_LIMIT:
-            host = pull_columns(sdn.pack_pull(run))
-            t1 = time.time()
-            ha = sdn.packed_run_to_host_agg(*host, self.k, self.l_pre)
-        else:
-            host = pull_columns(run)
-            t1 = time.time()
-            ha = sdn.run_to_host_agg(*host, self.k, self.l_pre)
+        if done is not None:
+            done.synchronize()
+        host = pull_columns(cols)
+        t1 = time.time()
+        to_agg = sdn.packed_run_to_host_agg if packed else sdn.run_to_host_agg
+        ha = to_agg(*host, self.k, self.l_pre, with_ret)
         log(f"pull {t1 - t0:.1f}s, host aggregate {time.time() - t1:.1f}s",
             func="AggBuilder")
         return ha
 
+    def _spill_stage(self, run: sdn.Run):
+        """LsmTree's stage, on the pushing thread: a spilled span's pack
+        (KE), counted and logged.  Once the tree drops the run, only its
+        packed columns stay on the card until the pull worker has copied
+        them."""
+        self.spills += 1
+        self.spilled_rows += len(run)
+        log(f"spill {self.spills}: {len(run)} rows", func="AggBuilder")
+        return self._pack(run)
+
+    def _spill_pull(self, staged) -> sph.HostAgg:
+        """LsmTree's to_host, on the pull worker: one spilled span to the
+        host, its ret left out where derivable (finish derives it
+        once)."""
+        return self._to_host(staged, self.carry)
+
+    def _host_merge(self, a: sph.HostAgg, b: sph.HostAgg) -> sph.HostAgg:
+        """LsmTree's host_merge: a covers the earlier span."""
+        t0 = time.time()
+        out = sph.merge_host_aggs(a, b, l_pre=self.l_pre, kb_bits=self.kb_bits)
+        self.host_merge_rows += len(a.shard) + len(b.shard)
+        log(f"host merge of {len(a.shard)} + {len(b.shard)} rows in "
+            f"{time.time() - t0:.1f}s", func="AggBuilder")
+        return out
+
     def finish(self, device_finalize: Optional[bool] = None):
-        """Fold the tree.  For the device finalize (device_finalize_on)
-        return the folded Run as it lies on the card, as bfc_tpu skips its
-        pull and sketch there (counter.py:601-610); else pull the
-        aggregate and attach the Bloom sketch: a HostAgg."""
-        acc = self.fold()
+        """Fold the tree.  Where nothing spilled: for the device finalize
+        (device_finalize_on) the folded Run as it lies on the card, as
+        bfc_tpu skips its pull and sketch there (counter.py:601-610); else
+        the pulled aggregate with the Bloom sketch, a HostAgg.  Where the
+        tree spilled, the merged HostAgg in both modes, its ret filled in
+        (bfc_tpu's _ensure_ret, counter.py:562-571); the sketch is built
+        over it for the host finalize only, as the device finalize's
+        verdict (KF or KI, on the aggregate finalize_spectrum or the
+        trimmer takes to the card) does not read it."""
+        t0 = time.time()
+        acc, host = self.tree.finish()
+        if host is not None:
+            log(f"{len(host.shard)} distinct k-mers aggregated (host tree): "
+                f"{self.spills} spills of {self.spilled_rows} rows, "
+                f"{self.tree.timings}, tree finish {time.time() - t0:.1f}s",
+                func="AggBuilder")
+            if host.ret is None:
+                host = host._replace(ret=sdn.derive_ret_np(
+                    host.shard, host.keybody, self.k, self.l_pre))
+            if device_finalize_on(device_finalize):
+                return host
+            return self._sketched(host)
         if acc is not None:
             log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
         if device_finalize_on(device_finalize):
             return sdn.empty_run(self.device) if acc is None else acc
         if acc is None:
             return sph.empty_host_agg()
-        ha = self.pull(acc)
+        return self._sketched(self.pull(acc))
+
+    def _sketched(self, ha: sph.HostAgg) -> sph.HostAgg:
+        """ha with the Bloom sketch of its first arrivals attached: the
+        minimum over the whole aggregate, which is what bfc_tpu's fold of
+        span minima (_scatter_sketch, counter.py:527-543) converges to."""
         t0 = time.time()
         sketch = sph.BloomMinSketch.create(self.opt.bf_shift, self.opt.n_hashes)
         if sketch is not None:

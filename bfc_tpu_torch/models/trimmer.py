@@ -30,7 +30,8 @@ from ..ops import spectrum as spec
 from ..ops import spectrum_dense as sdn
 from ..ops.spectrum_dense import as_i32
 from ..utils.log import log
-from .counter import count_batches_aggregate, usable_sketch
+from .counter import (count_batches_aggregate, device_finalize_on,
+                      usable_sketch)
 from .refmodel import bloom_probes
 
 
@@ -178,9 +179,10 @@ def count_file_filter_device(fn: str, opt: Opts, device,
     With the host finalize (the default; device_finalize_on) the
     aggregate is pulled, and the verdict comes from the host Bloom sketch
     where bfc_tpu takes it (bf_shift <= 31, trimmer.py:109-120).  Else,
-    and always with the device finalize, where the run stays on the card
-    (KJ fills in ret where it is not carried), spec.adjudicate gives it:
-    KF, or KI once arrivals reach 2^32 - 1 (trimmer.py:121-130).  `info`
+    and always with the device finalize, spec.adjudicate gives it on the
+    card: KF, or KI once arrivals reach 2^32 - 1 (trimmer.py:121-130),
+    over the run as it stays on the card (KJ fills in ret where it is not
+    carried) or over a spilled tree's aggregate taken there.  `info`
     receives the read and k-mer counts, which verdict ran, the aggregate
     (a HostAgg, or the device Run) and the keep flags."""
     dev = torch.device(device)
@@ -214,7 +216,8 @@ def count_file_filter_device(fn: str, opt: Opts, device,
     if info is not None:
         info.update(n_reads=n_reads, n_aggregated=len(ret), n_kept=n_kept,
                     verdict=verdict, aggregate=agg, keep=keep,
-                    finalize="device" if isinstance(agg, sdn.Run) else "host")
+                    finalize="device" if device_finalize_on(device_finalize)
+                    else "host")
     return bloom
 
 

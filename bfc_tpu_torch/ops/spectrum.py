@@ -415,6 +415,12 @@ def verdict_bytes(rows: int, bf_shift: int, kernel: str) -> int:
     return _verdict_layout(rows, bf_shift, kernel)[-1]
 
 
+# what the verdict's raise suggests: correction's spectrum can be judged
+# on the host, which needs no device scratch
+HOST_FINALIZE = ("the host finalize (BFC_TPU_DEVICE_FINALIZE unset) judges "
+                 "a correction spectrum on the host")
+
+
 def verdict_scratch(rows: int, bf_shift: int, dev, kernel: str):
     """The verdict's scratch on dev: (the tensor, which must outlive the
     launch, S, and the addresses of its records, slots, verdict bytes,
@@ -429,7 +435,7 @@ def verdict_scratch(rows: int, bf_shift: int, dev, kernel: str):
             f"the {kernel} verdict of {rows} rows at -b{bf_shift} needs "
             f"{need} bytes of device scratch "
             f"({RECORD_BYTES[kernel] + 5} a row, 4 a superblock of Bloom "
-            f"blocks), {free} free")
+            f"blocks), {free} free; {HOST_FINALIZE}")
     buf = torch.empty((need,), dtype=torch.uint8, device=dev)
     base = buf.data_ptr()
     return (buf, verdict_shift(rows, bf_shift), base, base + slot,
@@ -503,7 +509,7 @@ def verdict_route(arr_max: int, rows: int, bf_shift: int,
     if free_bytes is not None and need > free_bytes:
         raise RuntimeError(
             f"the {by} verdict of {rows} rows at -b{bf_shift} needs {need} "
-            f"bytes of device scratch, {free_bytes} free")
+            f"bytes of device scratch, {free_bytes} free; {HOST_FINALIZE}")
     return by
 
 

@@ -235,18 +235,19 @@ def pack_pull(run: Run) -> Packed:
     return Packed(run.shard, run.keybody, a_lo, nfh, run.ret)
 
 
-def _host_ret(shard, keybody, ret, k: int, l_pre: int):
+def _host_ret(shard, keybody, ret, k: int, l_pre: int, derive: bool):
     if ret is None:
-        return derive_ret_np(shard, keybody, k, l_pre)
+        return derive_ret_np(shard, keybody, k, l_pre) if derive else None
     return ret.view(np.uint64)
 
 
 def packed_run_to_host_agg(shard: np.ndarray, keybody: np.ndarray,
                            a_lo: np.ndarray, nfh: np.ndarray, ret, k: int,
-                           l_pre: int):
+                           l_pre: int, with_ret: bool = True):
     """Host twin of KE: pulled Packed columns -> HostAgg, with n and n_high
     saturated at 511 and 127 (spectrum_dense.py:packed_run_to_host_agg,
-    :258); ret is derived from the identity where it was not carried."""
+    :258); ret is derived from the identity where it was not carried,
+    unless with_ret is False (a spilled span: ret stays None)."""
     from .spectrum_host import HostAgg
 
     shard = shard.astype(np.uint32)
@@ -255,7 +256,7 @@ def packed_run_to_host_agg(shard: np.ndarray, keybody: np.ndarray,
     arr_hi = (nfh >> np.uint32(17)).astype(np.uint64) << np.uint64(32)
     return HostAgg(
         shard=shard, keybody=keybody,
-        ret=_host_ret(shard, keybody, ret, k, l_pre),
+        ret=_host_ret(shard, keybody, ret, k, l_pre, with_ret),
         n=nfh & np.uint32(511),
         n_high=(nfh >> np.uint32(9)) & np.uint32(127),
         first_arr=arr_hi | a_lo.view(np.uint32),
@@ -264,15 +265,16 @@ def packed_run_to_host_agg(shard: np.ndarray, keybody: np.ndarray,
 
 
 def run_to_host_agg(shard, keybody, arr, n, n_high, first_high, ret, k: int,
-                    l_pre: int):
-    """Pulled unpacked Run columns -> HostAgg (counts clamped to u32)."""
+                    l_pre: int, with_ret: bool = True):
+    """Pulled unpacked Run columns -> HostAgg (counts clamped to u32; ret
+    as packed_run_to_host_agg gives it)."""
     from .spectrum_host import HostAgg
 
     shard = shard.astype(np.uint32)
     keybody = keybody.view(np.uint64)
     return HostAgg(
         shard=shard, keybody=keybody,
-        ret=_host_ret(shard, keybody, ret, k, l_pre),
+        ret=_host_ret(shard, keybody, ret, k, l_pre, with_ret),
         n=np.minimum(n, 0xFFFFFFFF).astype(np.uint32),
         n_high=np.minimum(n_high, 0xFFFFFFFF).astype(np.uint32),
         first_arr=arr.view(np.uint64),

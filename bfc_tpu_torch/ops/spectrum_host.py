@@ -3,7 +3,9 @@
 Copied from the JAX package's host finalize: the port pulls the counting
 aggregate off the card once, adjudicates first occurrences against the
 Bloom filter here, and builds the cuckoo lookup table on the host, then
-copies it to the card.  Only the pieces the port calls are kept.
+copies it to the card.  merge_host_aggs merges the stream spans that the
+counting tree spills to the host (ops/lsm.py).  Only the pieces the port
+calls are kept.
 """
 
 from __future__ import annotations
@@ -45,6 +47,108 @@ def empty_host_agg() -> HostAgg:
         ret=np.zeros(0, np.uint64), n=np.zeros(0, np.uint32),
         n_high=np.zeros(0, np.uint32), first_arr=np.zeros(0, np.uint64),
         first_high=np.zeros(0, np.uint32),
+    )
+
+
+def merge_host_aggs(a: HostAgg, b: HostAgg, l_pre: int = None,
+                    kb_bits: int = None, parallel: bool = True,
+                    _ka: np.ndarray = None, _kb: np.ndarray = None) -> HostAgg:
+    """Merge two sorted aggregates; `a` must cover the EARLIER stream span
+    (bfc_tpu's spectrum_host.py:51-148; the counting spill's host merge,
+    ops/lsm.py).
+
+    Duplicate keys combine: occurrence counts add (saturating at u32),
+    first-occurrence fields come from `a` (a-entries are placed before
+    equal b-entries).  When l_pre/kb_bits are given and the identity
+    fits 64 bits (k <= 32), both inputs being sorted lets a linear
+    searchsorted merge replace the O(n log n) lexsort - the hot path of
+    the LSM host spill at tens of millions of rows.  Big fast-path
+    merges split into disjoint key ranges merged on a thread pool
+    (equal keys land in the same range on both sides, so the
+    a-before-b first-occurrence order is preserved range-locally)."""
+    if len(a.shard) == 0:
+        return b
+    if len(b.shard) == 0:
+        return a
+    na, nb = len(a.shard), len(b.shard)
+    fast = (
+        l_pre is not None and kb_bits is not None
+        and 64 - l_pre - kb_bits >= 0
+    )
+    if fast and parallel and na + nb >= _PAR_MIN:
+        import os as _os
+
+        nth = min(4, _os.cpu_count() or 1)
+        if nth > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            kbv = _kb if _kb is not None else posk64_np(
+                b.shard, b.keybody, l_pre, kb_bits)
+            ka = _ka if _ka is not None else posk64_np(
+                a.shard, a.keybody, l_pre, kb_bits)
+            splits = kbv[np.linspace(0, nb, nth, endpoint=False)[1:]
+                         .astype(np.int64)]
+            ao = np.concatenate(
+                [[0], np.searchsorted(ka, splits, side="left"), [na]]
+            ).astype(np.int64)
+            bo = np.concatenate(
+                [[0], np.searchsorted(kbv, splits, side="left"), [nb]]
+            ).astype(np.int64)
+
+            def _sl(f, lo, hi):
+                return None if f is None else f[lo:hi]
+
+            def part(i):
+                return merge_host_aggs(
+                    HostAgg(*(_sl(f, ao[i], ao[i + 1]) for f in a)),
+                    HostAgg(*(_sl(f, bo[i], bo[i + 1]) for f in b)),
+                    l_pre=l_pre, kb_bits=kb_bits, parallel=False,
+                    _ka=ka[ao[i]:ao[i + 1]], _kb=kbv[bo[i]:bo[i + 1]],
+                )
+
+            with ThreadPoolExecutor(max_workers=nth) as pool:
+                parts = list(pool.map(part, range(nth)))
+            return HostAgg(
+                *(None if any(c is None for c in cols)
+                  else np.concatenate(cols) for cols in zip(*parts))
+            )
+    if fast:
+        ka = _ka if _ka is not None else posk64_np(
+            a.shard, a.keybody, l_pre, kb_bits)
+        kbv = _kb if _kb is not None else posk64_np(
+            b.shard, b.keybody, l_pre, kb_bits)
+        # output slot per element: a before equal b (earlier span wins)
+        out_a = np.searchsorted(kbv, ka, side="left") + np.arange(na)
+        out_b = np.searchsorted(ka, kbv, side="right") + np.arange(nb)
+        order = np.empty(na + nb, np.int64)
+        order[out_a] = np.arange(na)
+        order[out_b] = np.arange(na, na + nb)
+    else:
+        shard_cat = np.concatenate([a.shard, b.shard])
+        keybody_cat = np.concatenate([a.keybody, b.keybody])
+        order = np.lexsort((keybody_cat, shard_cat))  # stable: a first
+    shard = np.concatenate([a.shard, b.shard])[order]
+    keybody = np.concatenate([a.keybody, b.keybody])[order]
+    first = np.empty(len(shard), bool)
+    first[0] = True
+    first[1:] = (shard[1:] != shard[:-1]) | (keybody[1:] != keybody[:-1])
+    starts = np.flatnonzero(first)
+
+    def pick(col_a, col_b):
+        return np.concatenate([col_a, col_b])[order][starts]
+
+    def addsum(col_a, col_b):
+        v = np.concatenate([col_a, col_b])[order].astype(np.uint64)
+        s = np.add.reduceat(v, starts)
+        return np.minimum(s, 0xFFFFFFFF).astype(np.uint32)
+
+    return HostAgg(
+        shard=shard[starts], keybody=keybody[starts],
+        ret=(None if a.ret is None or b.ret is None
+             else pick(a.ret, b.ret)),
+        n=addsum(a.n, b.n), n_high=addsum(a.n_high, b.n_high),
+        first_arr=pick(a.first_arr, b.first_arr),
+        first_high=pick(a.first_high, b.first_high),
     )
 
 
@@ -247,9 +351,10 @@ class BloomMinSketch:
     k-mer only compares its first arrival against the GLOBAL minimum
     first arrival over every k-mer probing the same Bloom bit - and a
     global min is associative, so each LSM span can fold its partial
-    minima in as it spills (on the niced spill worker, overlapping the
-    stream) instead of the finalize tail sorting every (bit, arrival)
-    probe key at once.  Exactness argument: a span's first_arr for key
+    minima in as it spills (bfc_tpu folds them on its spill worker; the
+    port's AggBuilder scatters the whole aggregate once, spilled or not)
+    instead of the finalize tail sorting every (bit, arrival) probe key
+    at once.  Exactness argument: a span's first_arr for key
     x is the min arrival of x WITHIN the span, and min over spans of
     span-local minima equals x's global first arrival, so the dense
     array converges to exactly the per-bit minima adjudicate_np's sort

@@ -29,8 +29,10 @@ Arrivals are global (bfc_tpu's mesh.py:110-114), so the counts and
 verdicts are those of the single-device pass, and so is the output.
 bfc_tpu's fixed bucket and merge capacities and their overflow retries
 (mesh.py:493-501) exist for XLA's fixed shapes; the exchanges here take
-uneven splits and need neither.  A merge that does not fit the card
-raises, as AggBuilder's does.
+uneven splits and need neither.  Each rank's AggBuilder runs with the
+spill off: a merge that does not fit the card raises.  bfc_tpu's mesh
+spill (mesh.py:434-481, an all-gather to a host tree) is ROADMAP Queue 1
+item 9b.
 """
 
 from __future__ import annotations
@@ -233,7 +235,7 @@ def count_file_mesh(fn: str, opt: Opts, device, batch_reads: int = 16384,
     step = batch_reads // R
     k, l_pre = opt.k, opt.effective_l_pre()
     dev = torch.device(device)
-    tree = C.AggBuilder(opt, dev)
+    tree = C.AggBuilder(opt, dev, spill=False)
     n_reads = 0
     for bases, qok, lens, n in C.padded_batches(fn, opt, batch_reads,
                                                 rows=(r * step, (r + 1) * step)):

@@ -3,8 +3,8 @@ kernels, drives the count + correct main path and the trim path (-1) at
 E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
 (-d/-r), then the probe path (chip_probe.py), -R over the main path's
-output and a --profile run, and holds every kernel against its plain
-PyTorch version.
+output, a --profile run and the counting spill to the host, and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -156,6 +156,31 @@ Phases (any failure raises; nothing is caught):
    output must hash as the same run's without --profile.  Printed: the
    kernels the trace holds and the share of the traced wall in which the
    card ran one.
+18. The counting spill, over phase 2's 3,000,000 reads, each run through
+   run_device with its launch counts zeroed just before and read just
+   after, and every AggBuilder it makes collected: (a) -s 5m with
+   BFC_TPU_MAX_MERGE_CAP=4194304 (bfc_tpu's default cap, set in this
+   process), host finalize; (b) the same with the device finalize, where
+   the verdict (KF, or KI from 2^32 arrivals), KK and KL must launch on
+   the aggregate uploaded from the host and KJ must not (the spilled
+   aggregate comes with ret); (c) no cap, with a torch.empty ballast on
+   the card that leaves 4 GiB of device_free_bytes, so that the tree
+   spills on the byte rule alone; (d) -1 -k51 with the cap of (a), in a
+   process of its own (this script with --spill-trim, its launches
+   counted there) beside (a) and (b), since at k = 51 the host merges
+   take the lexsort and last minutes; (c) starts once (d) has ended, as
+   its ballast needs the card alone.  In each the tree must spill at
+   least once, KE must launch once for each spilled span (with a spill
+   the last levels spill too, so there is no other pull), and the output
+   must hash as phase 2's ((a)-(c)) or phase 5's ((d)).  Printed for
+   each: spills and rows spilled, KE's call on each spilled span (CUDA
+   events) beside its bound, the pack seconds on the counting thread and
+   the worker threads' copy and host-merge seconds (LsmTree.timings), the
+   rows the host merges took in, the counting wall beside the unspilled
+   phase's, the device peak beside the ballast, the process's host peak
+   RSS so far (VmHWM; also before (a)) and the launches; for (a) KA's
+   and KB's launches beside phase 2's; for (c) the ballast and the free
+   bytes it left.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -180,7 +205,9 @@ import hashlib
 import json
 import os
 import re
+import resource
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -1700,15 +1727,219 @@ def check_profile(head: Path, tmp: Path) -> None:
         f.unlink()
 
 
+SPILL_CAP = 1 << 22    # bfc_tpu's default BFC_TPU_MAX_MERGE_CAP (rows)
+SPILL_FREE = 4 << 30   # device_free_bytes that the ballast of (c) leaves
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident set so far: VmHWM of /proc/self/status,
+    which starts anew at exec, as getrusage's ru_maxrss does not (a
+    process this script starts would report this one's peak), else
+    ru_maxrss."""
+    try:
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("VmHWM:"):
+                    return int(ln.split()[1]) / 2**20
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+@contextlib.contextmanager
+def merge_cap_env(cap):
+    """BFC_TPU_MAX_MERGE_CAP set to cap (None: unset) inside the block,
+    which gets the list of every AggBuilder made in it."""
+    made = []
+    init = C.AggBuilder.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    old = os.environ.pop("BFC_TPU_MAX_MERGE_CAP", None)
+    if cap is not None:
+        os.environ["BFC_TPU_MAX_MERGE_CAP"] = str(cap)
+    C.AggBuilder.__init__ = record
+    try:
+        yield made
+    finally:
+        C.AggBuilder.__init__ = init
+        os.environ.pop("BFC_TPU_MAX_MERGE_CAP", None)
+        if old is not None:
+            os.environ["BFC_TPU_MAX_MERGE_CAP"] = old
+
+
+@contextlib.contextmanager
+def timed_packs():
+    """sdn.pack_pull (KE's wrapper) timed with CUDA events inside the
+    block, which gets the list of (rows, start, end) of every call."""
+    calls = []
+    pack = sdn.pack_pull
+
+    def timed(run):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pack(run)
+        end.record()
+        calls.append((len(run), start, end))
+        return out
+
+    sdn.pack_pull = timed
+    try:
+        yield calls
+    finally:
+        sdn.pack_pull = pack
+
+
+def spill_run(tag: str, o, fq: Path, tmp: Path, cap, want_hash: str,
+              unspilled_count_s: float, device_finalize: bool = False,
+              free_left=None):
+    """One run of phase 18: run_device over fq with the merge cap `cap`
+    (None: none), and with free_left, a ballast on the card that leaves
+    free_left bytes of device_free_bytes for the run.  The counting tree
+    must spill, every spilled span must cross through KE (with a spill the
+    last levels spill too: there is no other pull), and the output must
+    hash as want_hash.  KE's call on each spilled span is timed with CUDA
+    events.  Returns (report, launches, the builder)."""
+    dev = torch.device("cuda")
+    out = tmp / f"spill_{tag}.fq"
+    ballast, left, size = None, None, 0
+    with merge_cap_env(cap) as made, timed_packs() as packs:
+        if free_left is not None:
+            torch.cuda.empty_cache()
+            size = kernels.device_free_bytes(dev) - free_left
+            ballast = torch.empty((size,), dtype=torch.uint8, device=dev)
+            left = kernels.device_free_bytes(dev)
+        try:
+            rep, launches, peak = drive(o, fq, out,
+                                        device_finalize=device_finalize)
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+    if len(made) != 1:
+        fail(f"spill {tag}: {len(made)} counting trees, not one")
+    b = made[0]
+    torch.cuda.synchronize()
+    ke_ms = [start.elapsed_time(end) for _, start, end in packs]
+    ke_rows = [rows for rows, _, _ in packs]
+    ke_bound = bound(sum(ke_rows) * (3 * 8 + 1 + 2 * 4),
+                     sum(ke_rows) * OPS_KE_ROW)[0]
+    print(f"spill {tag} ({rep['finalize']} finalize, cap {b.cap}"
+          + ("" if free_left is None else
+             f", ballast {size} bytes leaving {left} free")
+          + f"): {b.spills} spills of {b.spilled_rows} rows; KE on the "
+          f"spilled spans {sum(ke_ms):.4f} ms for {sum(ke_rows)} rows (CUDA "
+          f"events; per span {min(ke_ms, default=0):.4f}-"
+          f"{max(ke_ms, default=0):.4f} ms for {min(ke_rows, default=0)}-"
+          f"{max(ke_rows, default=0)} rows; bound {ke_bound:.4f} ms), pack "
+          f"{b.tree.timings.get('stage', 0.0)} s (counting thread); copy "
+          f"and unpack {b.tree.timings.get('pull', 0.0)} s, host merges of "
+          f"{b.host_merge_rows} input rows "
+          f"{b.tree.timings.get('host_merge', 0.0)} s (worker threads); "
+          f"counting {rep['count_s']:.2f} s (unspilled {unspilled_count_s:.2f}"
+          f"), {rep.get('trim_s', rep.get('correct_s', 0.0)):.2f} s after it; "
+          f"device peak {(peak - size) / 2**30:.2f} GiB beside the ballast; "
+          f"host peak RSS of the process so far "
+          f"{peak_rss_gib():.2f} GiB; launches {launches}", flush=True)
+    if b.spills < 1:
+        fail(f"spill {tag}: the counting tree did not spill")
+    if launches["pack_pull"] != b.spills:
+        fail(f"spill {tag}: KE launched {launches['pack_pull']} times for "
+             f"{b.spills} spilled spans")
+    if file_hash(out) != want_hash:
+        fail(f"spill {tag}: the output differs from the unspilled run's")
+    out.unlink()
+    return rep, launches, b
+
+
+def spill_trim(fq: Path, want_hash: str, unspilled_count_s: float,
+               result: Path) -> None:
+    """Phase 18 (d), in a process of its own (this script with
+    --spill-trim): -1 -k51 under the cap of (a), its launch counts
+    written to result as JSON."""
+    topt = Opts()
+    topt.k = TRIM_K
+    topt.filter_mode = True
+    _, launches, _ = spill_run("(d) trim, row cap", topt, fq, result.parent,
+                               SPILL_CAP, want_hash, unspilled_count_s)
+    result.write_text(json.dumps(launches))
+
+
+def check_spill(opt, fq: Path, tmp: Path, main, device, trim):
+    """Phase 18: the counting spill over the 3M reads.  main, device and
+    trim are (count_s, output hash, launches) of phases 2, 7 and 5.  (d)
+    runs in a process of its own beside (a) and (b): at k = 51 its host
+    merges take the lexsort and hold the card idle for minutes.  (c)
+    starts once (d) has ended, as its ballast needs the card alone.
+    Returns each run's launches by path name."""
+    print(f"spill: host peak RSS of the process before phase 18 "
+          f"{peak_rss_gib():.2f} GiB", flush=True)
+    paths = {}
+    result = tmp / "spill_trim.json"
+    trim_proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--spill-trim",
+         str(fq), trim[1], repr(trim[0]), str(result)],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        _, paths["spill_cap_host"], _ = spill_run(
+            "(a) row cap, beside (d)", opt, fq, tmp, SPILL_CAP, main[1],
+            main[0])
+        a = paths["spill_cap_host"]
+        print(f"spill (a): KA {a['kmer_stream']} launches, KB "
+              f"{a['run_combine']} (phase 2: KA {main[2]['kmer_stream']}, "
+              f"KB {main[2]['run_combine']}); output byte-identical to "
+              "phase 2's", flush=True)
+        rep, paths["spill_cap_device"], _ = spill_run(
+            "(b) row cap, beside (d)", opt, fq, tmp, SPILL_CAP, main[1],
+            device[0], device_finalize=True)
+        trim_out, _ = trim_proc.communicate()
+    finally:
+        if trim_proc.poll() is None:
+            trim_proc.kill()
+            trim_proc.wait()
+    lb = paths["spill_cap_device"]
+    need_launched(lb, ("finalize_counts", "cuckoo_build"),
+                  "the device finalize of a spilled aggregate")
+    need_launched(lb, ("bloom_adjudicate" if rep["verdict"] == "KF"
+                       else "first_occurrence",), "the spilled verdict")
+    # AggBuilder.finish hands over a spilled aggregate with ret filled in
+    need_silent(lb, ("derive_ret",), "the device finalize of a spilled "
+                "aggregate, which came with ret")
+    print(f"spill (b): verdict {rep['verdict']} on the uploaded aggregate, "
+          f"KK {lb['finalize_counts']}, KL {lb['cuckoo_build']} launches; "
+          f"the aggregate came with ret, KJ {lb['derive_ret']} launches; "
+          "output byte-identical to phase 2's", flush=True)
+    sys.stdout.write(trim_out)
+    if trim_proc.returncode != 0:
+        fail(f"spill (d) exited with {trim_proc.returncode}")
+    paths["spill_cap_trim"] = json.loads(result.read_text())
+    print("spill (d): output byte-identical to phase 5's", flush=True)
+    _, paths["spill_bytes_host"], b = spill_run(
+        "(c) bytes", opt, fq, tmp, None, main[1], main[0],
+        free_left=SPILL_FREE)
+    if b.cap is not None:
+        fail("spill (c) ran with a row cap")
+    print("spill (c): spilled on the byte rule alone; output byte-identical "
+          "to phase 2's", flush=True)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome", type=int, default=5_000_000,
                     help="synthetic genome length in bases [5,000,000]")
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--spill-trim", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.spill_trim:
+        fq, want, count_s, result = args.spill_trim
+        spill_trim(Path(fq), want, float(count_s), Path(result))
+        return 0
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -1738,6 +1969,7 @@ def main() -> int:
         dump = tmp / "spectrum.dump"
         report, launches, peak = drive(opt, fq, out_fq, out_hash=str(dump))
         cs, es = report["count_s"], report["correct_s"]
+        main_count_s = cs
         print(f"main path (k={opt.k}, -b{opt.bf_shift}): counting {cs:.2f} s "
               f"({n_reads / cs:.0f} reads/s), correction {es:.2f} s "
               f"({n_reads / es:.0f} reads/s), end to end "
@@ -1851,6 +2083,7 @@ def main() -> int:
         trim_fq = tmp / "trimmed.fq"
         trep, tlaunches, tpeak = drive(topt, fq, trim_fq)
         cs, ts = trep["count_s"], trep["trim_s"]
+        trim_count_s = cs
         print(f"trim path (-1 -k{topt.k}, -b{topt.bf_shift}, verdict "
               f"{trep['verdict']}): counting {cs:.2f} s, trim {ts:.2f} s, end "
               f"to end {n_reads / (cs + ts):.0f} reads/s; reads kept "
@@ -1909,6 +2142,7 @@ def main() -> int:
         dout = tmp / "corrected_device.fq"
         drep, dlaunches, dpeak = drive(opt, fq, dout, device_finalize=True)
         cs, es = drep["count_s"], drep["correct_s"]
+        dev_count_s = cs
         print(f"main path, device finalize (verdict {drep['verdict']}): "
               f"counting {cs:.2f} s, correction {es:.2f} s, end to end "
               f"{n_reads / (cs + es):.0f} reads/s; {drep['n_aggregated']} "
@@ -2182,6 +2416,15 @@ def main() -> int:
 
         # ---- --profile (phase 17)
         check_profile(head, tmp)
+
+        # ---- the counting spill (phase 18)
+        t0 = time.time()
+        spill_launches = check_spill(
+            opt, fq, tmp, (main_count_s, main_hash, launches),
+            (dev_count_s, main_hash, dlaunches),
+            (trim_count_s, trim_hash, tlaunches))
+        print(f"spill: four runs byte-identical to the unspilled ones; "
+              f"{time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2190,7 +2433,7 @@ def main() -> int:
              "trim_device_finalize": dtlaunches,
              "trim_device_finalize_from_2^33": ftlaunches,
              "main_count_device_finalize_from_2^33": fclaunches,
-             **mesh_launches}
+             **mesh_launches, **spill_launches}
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
         r = res[name]

@@ -10,7 +10,9 @@ the device finalize on the card against the same
 paths on the CPU (also at -b35, KF's from arrival 0 and KI's from 2^33),
 KF and KI on a fold whose hot blocks hold over 1,000 rows, and the mesh
 path (one NCCL rank, two gloo ranks sharing the card), with the table
-replicated and sharded, against the single-device run.
+replicated and sharded, against the single-device run, and the counting
+tree spilled to the host by a forced BFC_TPU_MAX_MERGE_CAP against the
+CPU's aggregates.
 
 Marked `gpu`: each test skips without a CUDA device.  The file imports
 neither jax nor bfc_tpu, so it also runs where only the port is
@@ -790,3 +792,30 @@ def test_sharded_mesh_matches_single_device(card, tmp_path):
             cwd=root, capture_output=True, check=True, env=env)
         assert r.stdout == want, (backend, args)
         assert f"sharded over {n} devices".encode() in r.stderr
+
+
+@pytest.mark.parametrize("k", [21, 63])
+def test_spilled_aggregate_on_card_matches_cpu(card, tmp_path, monkeypatch, k):
+    """BFC_TPU_MAX_MERGE_CAP forced low: the card's tree spills (KE once a
+    spilled span, on the counting thread) and its host aggregate equals the
+    CPU's spilled and unspilled aggregates column by column."""
+    b, q = _reads()
+    fq = str(_write_fq(tmp_path / "reads.fq", b, q))
+    opt = Opts()
+    opt.k = k
+    opt.bf_shift = 24
+    monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", str(1 << 15))
+    kernels.reset_launches()
+    got = TC.AggBuilder(opt, card)
+    for bases, qok, lens, _ in TC.padded_batches(fq, opt, 256):
+        got.add(bases, qok, lens)
+    ha = got.finish()
+    assert got.spills >= 1
+    assert kernels.KERNELS["pack_pull"].launches == got.spills
+    cpu, _ = TC.count_batches_aggregate(fq, opt, "cpu", batch_reads=256)
+    monkeypatch.delenv("BFC_TPU_MAX_MERGE_CAP")
+    plain, _ = TC.count_batches_aggregate(fq, opt, "cpu", batch_reads=256)
+    for f in ("shard", "keybody", "ret", "n", "n_high", "first_arr",
+              "first_high"):
+        np.testing.assert_array_equal(getattr(ha, f), getattr(cpu, f), f)
+        np.testing.assert_array_equal(getattr(ha, f), getattr(plain, f), f)

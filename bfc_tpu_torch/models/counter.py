@@ -32,6 +32,7 @@ from ..ops import spectrum as spec
 from ..ops import spectrum_dense as sdn
 from ..ops import spectrum_host as sph
 from ..ops.lsm import LsmTree
+from ..parallel import comm
 from ..utils.log import log
 
 
@@ -72,6 +73,8 @@ class DeviceSpectrum:
         self.n_aggregated = 0
         # a sharded table's entries on each rank (parallel/mesh.py)
         self.entries_by_rank = None
+        # what the mesh's counting pass adds to run_device's report
+        self.count_report = {}
 
     def compact_entries(self):
         if callable(self._compact):
@@ -248,11 +251,13 @@ class AggBuilder:
     spills and spilled_rows count the spilled spans and their rows, and
     host_merge_rows the input rows of the host merges.
 
-    spill=False (each rank of the mesh) keeps every merge on the card and
-    raises where one does not fit.  Arrival order across add() calls must
-    be the stream order."""
+    Each rank of the mesh (parallel/mesh.py) runs one on its own prefix
+    range and spills by the same rule, its free bytes its share of a card
+    that other ranks use too (_free_bytes); drain and on_host give what
+    the ranks gather at the end.  Arrival order across add() calls must be
+    the stream order."""
 
-    def __init__(self, opt: Opts, device, spill: bool = True):
+    def __init__(self, opt: Opts, device):
         self.opt = opt
         self.device = torch.device(device)
         self.k = opt.k
@@ -261,8 +266,8 @@ class AggBuilder:
         self.carry = not sdn.ret_derivable(self.k, self.l_pre)
         self.arrival_base = 0
         self.n_batches = 0
-        self.spill = spill
-        self.cap = merge_cap() if spill else None
+        self.cap = merge_cap()
+        self.sharing = comm.ranks_sharing(self.device)
         self.spills = 0
         self.spilled_rows = 0
         self.host_merge_rows = 0
@@ -292,41 +297,68 @@ class AggBuilder:
 
     def _merge_bounded(self, a: sdn.Run, b: sdn.Run) -> Optional[sdn.Run]:
         """LsmTree's merge: a (the earlier span) and b merged on the card
-        where merge_on_card allows it, else None (the tree spills), or a
-        raise with the spill off."""
+        where merge_on_card allows it, else None (the tree spills)."""
         need = sdn.merge_bytes(a, b)
         free = self._free_bytes()
         if merge_on_card(len(a), len(b), need, free, self.cap):
             return self._merge(a, b)
-        if self.spill:
-            log(f"merge of {len(a)} + {len(b)} rows stays off the card "
-                f"(cap {self.cap} rows, needs {need} bytes, {free} free): "
-                "spilling", func="AggBuilder")
-            return None
-        raise RuntimeError(
-            f"counting merge of {len(a)} + {len(b)} rows needs {need} device "
-            f"bytes, {free} free: the mesh's spill is ROADMAP Queue 1 item 9b")
+        log(f"merge of {len(a)} + {len(b)} rows stays off the card "
+            f"(cap {self.cap} rows, needs {need} bytes, {free} free): "
+            "spilling", func="AggBuilder")
+        return None
 
     def _free_bytes(self) -> Optional[int]:
         """The spill rule's free bytes: kernels.device_free_bytes on the
-        card, None (no limit) on the CPU.  Only the pushing thread
+        card divided by self.sharing, the ranks of a mesh that run on this
+        card (comm.ranks_sharing; 1 for a card of its own), and None (no
+        limit) on the CPU.  Within a process only the pushing thread
         allocates on the card (KE's outputs are made in _spill_stage), so
-        the bytes free here are still free when the merge runs."""
+        the bytes free here are still free when the merge runs.  Ranks
+        that share the card allocate beside each other: each takes at most
+        its 1/sharing of what it sees free, so the merges that the ranks
+        check at the same moment fit together."""
         if self.device.type != "cuda":
             return None
-        return kernels.device_free_bytes(self.device)
+        return kernels.device_free_bytes(self.device) // self.sharing
 
     def _merge(self, a: sdn.Run, b: sdn.Run) -> sdn.Run:
         return sdn.merge_runs(a, b)
 
+    def drain(self):
+        """Fold the tree: (the run on the card, None) where nothing spilled,
+        else (None, the host tree's HostAgg, ret left out where
+        derivable); (None, None) for an empty stream."""
+        t0 = time.time()
+        acc, host = self.tree.finish()
+        if host is not None:
+            log(f"{len(host.shard)} distinct k-mers aggregated (host tree): "
+                f"{self.spills} spills of {self.spilled_rows} rows, "
+                f"{self.tree.timings}, tree finish {time.time() - t0:.1f}s",
+                func="AggBuilder")
+        elif acc is not None:
+            log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
+        return acc, host
+
     def fold(self) -> Optional[sdn.Run]:
         """Merge the tree into one run on the card; for a tree that did not
-        spill (the mesh's ranks), else this raises: finish takes it."""
-        acc, host = self.tree.finish()
+        spill, else this raises: finish takes it."""
+        acc, host = self.drain()
         if host is not None:
             raise RuntimeError("the counting tree spilled to the host: "
                                "AggBuilder.finish returns its aggregate")
         return acc
+
+    def on_host(self, acc: Optional[sdn.Run],
+                host: Optional[sph.HostAgg]) -> sph.HostAgg:
+        """drain's result on the host, ret left out where derivable: the
+        host tree's aggregate, else the folded run pulled (KE, then the
+        copy), else an empty aggregate.  A rank of the mesh whose tree did
+        not spill where another's did brings its run over this way."""
+        if host is not None:
+            return host
+        if acc is None:
+            return sph.empty_host_agg()
+        return self.pull(acc, with_ret=self.carry)
 
     def pull(self, run: sdn.Run, with_ret: bool = True) -> sph.HostAgg:
         """The run on the host: packed by KE while arrivals stay below
@@ -398,28 +430,19 @@ class AggBuilder:
         over it for the host finalize only, as the device finalize's
         verdict (KF or KI, on the aggregate finalize_spectrum or the
         trimmer takes to the card) does not read it."""
-        t0 = time.time()
-        acc, host = self.tree.finish()
+        acc, host = self.drain()
         if host is not None:
-            log(f"{len(host.shard)} distinct k-mers aggregated (host tree): "
-                f"{self.spills} spills of {self.spilled_rows} rows, "
-                f"{self.tree.timings}, tree finish {time.time() - t0:.1f}s",
-                func="AggBuilder")
-            if host.ret is None:
-                host = host._replace(ret=sdn.derive_ret_np(
-                    host.shard, host.keybody, self.k, self.l_pre))
+            host = with_ret(host, self.k, self.l_pre)
             if device_finalize_on(device_finalize):
                 return host
-            return self._sketched(host)
-        if acc is not None:
-            log(f"{len(acc)} distinct k-mers aggregated", func="AggBuilder")
+            return self.sketched(host)
         if device_finalize_on(device_finalize):
             return sdn.empty_run(self.device) if acc is None else acc
         if acc is None:
             return sph.empty_host_agg()
-        return self._sketched(self.pull(acc))
+        return self.sketched(self.pull(acc))
 
-    def _sketched(self, ha: sph.HostAgg) -> sph.HostAgg:
+    def sketched(self, ha: sph.HostAgg) -> sph.HostAgg:
         """ha with the Bloom sketch of its first arrivals attached: the
         minimum over the whole aggregate, which is what bfc_tpu's fold of
         span minima (_scatter_sketch, counter.py:527-543) converges to."""
@@ -431,6 +454,13 @@ class AggBuilder:
                 ha = ha._replace(bloom_min=sketch)
             log(f"Bloom sketch {time.time() - t0:.1f}s", func="AggBuilder")
         return ha
+
+
+def with_ret(ha: sph.HostAgg, k: int, l_pre: int) -> sph.HostAgg:
+    """ha with its ret derived from the identity where it was left out."""
+    if ha.ret is not None:
+        return ha
+    return ha._replace(ret=sdn.derive_ret_np(ha.shard, ha.keybody, k, l_pre))
 
 
 def pull_columns(cols):
@@ -509,21 +539,30 @@ def host_agg_to_run(agg: sph.HostAgg, device) -> sdn.Run:
                    None if agg.ret is None else col(agg.ret, True))
 
 
-def finalize_on_device(run: sdn.Run, opt: Opts, device) -> DeviceSpectrum:
-    """The device finalize of a folded run (bfc_tpu's finalize_spectrum
-    with host=False, counter.py:745-819): KJ where ret is not carried,
-    the verdict (KF, or KI past 2^32 arrivals), KK, the kept rows
-    compacted, and KL, retried one bit larger on a failed placement.  The
-    host copy of the entries is pulled at first use."""
-    t0 = time.time()
+def kept_on_device(run: sdn.Run, opt: Opts):
+    """The device finalize of a folded run up to its table: KJ where ret
+    is not carried, the verdict (KF, or KI past 2^32 arrivals), KK and the
+    kept rows compacted.  Returns (shard, keybody, payload, hist,
+    hist_high, verdict), the entries on the card in (shard, keybody)
+    order."""
     run = sdn.run_to_aggregate(run, opt.k, opt.effective_l_pre())
     fp, _, verdict = spec.adjudicate(run.ret, run.arr, run.n, opt.bf_shift,
                                      opt.n_hashes)
     payload, keep, hist, hist_high = spec.finalize_counts(
         run.n, run.n_high, run.first_high, fp)
     idx = torch.nonzero(keep).flatten()
-    return table_on_device(run.shard[idx], run.keybody[idx], payload[idx],
-                           hist, hist_high, opt, verdict, t0)
+    return (run.shard[idx], run.keybody[idx], payload[idx], hist, hist_high,
+            verdict)
+
+
+def finalize_on_device(run: sdn.Run, opt: Opts, device) -> DeviceSpectrum:
+    """The device finalize of a folded run (bfc_tpu's finalize_spectrum
+    with host=False, counter.py:745-819): kept_on_device, then KL,
+    retried one bit larger on a failed placement.  The host copy of the
+    entries is pulled at first use."""
+    t0 = time.time()
+    *kept, verdict = kept_on_device(run, opt)
+    return table_on_device(*kept, opt, verdict, t0)
 
 
 def table_on_device(shard, keybody, payload, hist, hist_high, opt: Opts,

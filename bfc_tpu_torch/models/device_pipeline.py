@@ -216,15 +216,19 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
     In a rank of a torch.distributed process group it runs the
     multi-device path (bfc_tpu's mesh_devices,
     device_pipeline.py:340-380): prefix-sharded counting, the distributed
-    finalize (always on the devices) and data-parallel correction, with
+    finalize on the devices (or, where a rank's counting tree spilled,
+    rank 0's finalize of the gathered aggregate, on the host unless
+    device_finalize says the card) and data-parallel correction, with
     rank 0 writing the output.  With shard_table (default:
     BFC_TPU_SHARD_TABLE=1) and a power-of-two number of ranks, each rank
     holds only its sub-table of a sharded table, which the others map
     (parallel/peer.py), unless no_ec; a restored spectrum is sharded the
     same way.  The report then also holds the world size, the backend,
-    every rank's kernel launch counts and, with the sharded table,
+    every rank's kernel launch counts, spills and rows spilled
+    (spills_by_rank, spilled_rows_by_rank) and, with the sharded table,
     cb_local and each rank's sub-table entries, and the fallback count
-    of all ranks.  A sharded table is released when correction ends
+    of all ranks; where a rank spilled, rank 0's gather_s, finalize_s
+    and send_s, and `finalize` says where rank 0 finalized.  A sharded table is released when correction ends
     (peer.release): the report's spectrum then keeps its entries and
     histograms, not its sub-tables.  Trim mode ignores the mesh, as bfc_tpu does: rank 0
     trims on its device and the other ranks return."""
@@ -270,7 +274,7 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
             ds = pmesh.count_file_mesh(
                 count_fn, opt, dev,
                 batch_reads=-(-count_batch_reads // R) * R,
-                shard_table=sharded)
+                shard_table=sharded, device_finalize=device_finalize)
         else:
             ds = count_file_device(count_fn, opt, dev,
                                    batch_reads=count_batch_reads,
@@ -305,6 +309,7 @@ def run_device(opt: Opts, count_fn: str, correct_fn: Optional[str] = None,
                 n_kept=ds.n_entries, spectrum=ds, n_fallback=n_fallback,
                 table="sharded" if sharded else "replicated",
                 c_bits=ds.c_bits)
+            report.update(ds.count_report)
             if dev.type == "cuda":
                 report["correct_peak_bytes"] = torch.cuda.max_memory_allocated(
                     dev)

@@ -59,7 +59,12 @@ class LsmTree:
     the tree spills); to_host(run) -> HostAgg; host_merge(older, newer)
     -> HostAgg.  async_spill runs to_host and host_merge on two ordered
     worker threads (numpy releases the GIL) - only safe when to_host
-    contains no collectives.  stage(run), where given, runs on the
+    contains no collectives.  The port's trees meet that condition on the
+    mesh too: each rank spills only its own prefix range to a tree of its
+    own, its workers copy and merge numpy, and the ranks meet on the main
+    thread once their trees are drained (parallel/mesh.py).  bfc_tpu's
+    mesh, whose pull all-gathers, spills synchronously instead.
+    stage(run), where given, runs on the
     pushing thread as a run is spilled, and to_host takes what it
     returns.  size(run) + eager_min enable the eager mid-stream spill of
     merge-dead levels."""

@@ -538,6 +538,13 @@ def build_cuckoo_table_host(shard, keybody, payload, c_bits: int,
     return entries, True
 
 
+def in_key_order(shard: np.ndarray, keybody: np.ndarray) -> bool:
+    """Whether rows are in strictly ascending (shard, keybody) order."""
+    s_gt = shard[1:] > shard[:-1]
+    s_eq = shard[1:] == shard[:-1]
+    return bool(np.all(s_gt | (s_eq & (keybody[1:] > keybody[:-1]))))
+
+
 def finalize_host(agg, bf_shift: int, n_hashes: int, k: int = None,
                   l_pre: int = None):
     """Numpy twin of spectrum.finalize_counts: payloads + hist.
@@ -591,14 +598,7 @@ def finalize_host(agg, bf_shift: int, n_hashes: int, k: int = None,
     # (shard, keybody); skip the O(n log n) lexsort when that holds
     # (one cheap monotonicity pass), keeping the sort for unsorted
     # producers (e.g. hash restore)
-    if len(shard_c) > 1:
-        s_gt = shard_c[1:] > shard_c[:-1]
-        s_eq = shard_c[1:] == shard_c[:-1]
-        kb_gt = keybody_c[1:] > keybody_c[:-1]
-        sorted_in = bool(np.all(s_gt | (s_eq & kb_gt)))
-    else:
-        sorted_in = True
-    if not sorted_in:
+    if not in_key_order(shard_c, keybody_c):
         order = np.lexsort((keybody_c, shard_c))
         shard_c, keybody_c, payload_c = (
             shard_c[order], keybody_c[order], payload_c[order]

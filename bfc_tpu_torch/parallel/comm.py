@@ -7,11 +7,14 @@ control tensors (split sizes, histograms, lengths) go through a gloo side
 group.  The backend is the caller's choice, made once at
 init_process_group; nothing here changes it.
 
-Every function is a collective: each rank calls it, in the same order.
+Every function that moves data is a collective: each rank calls it, in
+the same order, and from its main thread (the counting tree's workers,
+ops/lsm.py, call none of them).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -36,6 +39,20 @@ def size() -> int:
 
 def backend() -> str:
     return str(dist.get_backend())
+
+
+def ranks_sharing(dev: torch.device) -> int:
+    """The ranks of this host that run on the card dev, this one included
+    (1 outside a process group or off the cards).  The launcher and
+    torchrun put local rank r on cuda:(r % device_count)
+    (multihost.device_for), so card d holds local ranks d, d + n, ...
+    of LOCAL_WORLD_SIZE.  Not a collective."""
+    if not active() or dev.type != "cuda":
+        return 1
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(size())))
+    n = torch.cuda.device_count()
+    d = torch.cuda.current_device() if dev.index is None else dev.index
+    return max(1, len(range(d, local_world, n)))
 
 
 def side_group():
@@ -144,6 +161,23 @@ def gather_rows(cols: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
         if rank() == 0:
             out.append(torch.cat([p[:n] for p, n in zip(parts, lens)]))
     return out if rank() == 0 else None
+
+
+def broadcast_rows(cols: Optional[Sequence[torch.Tensor]],
+                   dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+    """Rank 0's 1-D host columns of equal length (cols, read on rank 0
+    alone; the others pass None) on every rank, one column at a time,
+    with the given dtypes."""
+    n = torch.tensor([cols[0].shape[0] if rank() == 0 else 0])
+    dist.broadcast(n, src=0, group=side_group())
+    out = []
+    for i, dt in enumerate(dtypes):
+        t = (cols[i].detach().cpu().contiguous() if rank() == 0
+             else torch.empty((int(n),), dtype=dt))
+        if int(n):
+            dist.broadcast(t, src=0, group=side_group())
+        out.append(t)
+    return out
 
 
 def gather_segments(seg: bytes) -> List[bytes]:

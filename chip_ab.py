@@ -7,7 +7,8 @@ of one tree of bfc_tpu_torch on one CUDA card.
 
     python3 chip_ab.py [--tree DIR] [--genome BASES] [--seed N]
                        [--correct-batch N]
-                       [--parts main,verdicts,km,kh,kl,kn,kk,ko,kp,kq,kr,paths]
+                       [--parts main,verdicts,km,kh,kl,kn,kk,ko,kp,kq,kr,paths,
+                                alloc]
     python3 chip_ab.py --verdict-variants
 
 bfc_tpu_torch is imported from DIR (default: this script's directory), so
@@ -104,9 +105,14 @@ Then (paths) the walls of the paths that run KH and KM, as their reports
 give them, with the outputs' sha256: the trim path (`-1 -k51`, host
 finalize) through run_device, and the main path over two gloo ranks
 sharing the card (`--mesh 2 -s 5m`) through the launcher, with every
-rank's KM launches.  --parts picks the sections: main (the count and
-KA-KD, the correction pass), verdicts, km, kh, kl, kn, kk, ko, kp, kq,
-kr, paths.
+rank's KM launches.  And (alloc) the host passes that glibc's allocator
+setting of bfc_tpu_torch/__init__.py is for, as the first part of its
+process: the counting pass with the host finalize, then the same under
+BFC_TPU_MAX_MERGE_CAP=4194304 (chip_smoke.py's phase 18 (a)), each with
+its wall, spills, host-merge, pull and pack seconds and the process's
+peak resident set after it, and whether the tree sets the allocator.
+--parts picks the sections: main (the count and KA-KD, the correction
+pass), verdicts, km, kh, kl, kn, kk, ko, kp, kq, kr, paths, alloc.
 
 --verdict-variants measures designs of the KF/KI verdict instead: it
 builds the verdict's two libraries as they stand and once for each of
@@ -170,7 +176,7 @@ VARIANTS = {
 KM_CASES = (("prefix", 1), ("prefix", 2), ("prefix", 8), ("bloom", 2),
             ("bloom", 8))
 PARTS = ("main", "verdicts", "km", "kh", "kl", "kn", "kk", "ko", "kp", "kq",
-         "kr", "paths")
+         "kr", "paths", "alloc")
 PROBE_PARTS = {"ko": "KO", "kp": "KP", "kq": "KQ",
                "kr": "KR"}   # chip_probe.py's sites
 # KP's column routes forced on one 8,192-row table: (queries, steps)
@@ -827,6 +833,35 @@ def path_walls(smoke, Opts, fq: Path, tmp: Path, tree: Path) -> dict:
     return rec
 
 
+def alloc_walls(torch, smoke, C, opt, fq: Path, dev, tree: Path) -> dict:
+    """The host passes that glibc's allocator setting (bfc_tpu_torch/
+    __init__.py, where the tree has it) is for: the counting pass with the
+    host finalize (pull, sketch, adjudicate, table), then the same under
+    chip_smoke.py's SPILL_CAP with its spill's host merges (phase 18 (a)),
+    each with its wall, the spill's seconds (LsmTree.timings) and the
+    process's peak resident set after it (chip_smoke.peak_rss_gib)."""
+    init = (tree / "bfc_tpu_torch" / "__init__.py").read_text()
+    rec = {"allocator_set": "mallopt" in init}
+    for tag, cap in (("host_finalize", None), ("spill_cap_host",
+                                               smoke.SPILL_CAP)):
+        with smoke.merge_cap_env(cap) as made:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ds = C.count_file_device(str(fq), opt, dev, smoke.COUNT_B,
+                                     device_finalize=False)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        b = made[0]
+        rec[tag] = {"count_s": wall, "n_entries": ds.n_entries,
+                    "spills": b.spills, "spilled_rows": b.spilled_rows,
+                    "host_merge_rows": b.host_merge_rows,
+                    "timings": dict(b.tree.timings),
+                    "peak_rss_gib": smoke.peak_rss_gib()}
+        del ds, made, b
+        torch.cuda.empty_cache()
+    return rec
+
+
 def trim_host_ms(torch, smoke, bases, dev, reps: int = 20) -> float:
     """The host side of one trim batch as Trimmer.trim_file makes it,
     without KH: the bases padded into the 8,192 x 128 batch and the
@@ -1013,6 +1048,8 @@ def main() -> int:
         topt = Opts()
         topt.k = smoke.TRIM_K
         topt.filter_mode = True
+        if "alloc" in parts:
+            rec["alloc"] = alloc_walls(torch, smoke, C, opt, fq, dev, tree)
         if "main" in parts:
             main_part(rec, args, torch, smoke, kernels, FR, OutputWriter, C,
                       DP, ann, kops, srch, sdn, opt, fq, tmp, dev, bases,

@@ -3,8 +3,9 @@ kernels, drives the count + correct main path and the trim path (-1) at
 E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
 (-d/-r), then the probe path (chip_probe.py), -R over the main path's
-output, a --profile run and the counting spill to the host, and holds
-every kernel against its plain PyTorch version.
+output, a --profile run and the counting spill to the host, on one card
+and over the mesh, and holds every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -28,8 +29,10 @@ Phases (any failure raises; nothing is caught):
    version on every merge (up to the final fold of ~50M rows), and must
    fold to the main path's number of distinct k-mers; KB is timed on the
    top merge's input (the median of 7 calls); KE is held against
-   its plain version on that fold, and the fold's pull is timed unpacked
-   and packed (KE) in turns.  Then the card's count of the first 80,000
+   its plain version on that fold, timed as calls and, on the fold and on
+   its first SPAN_ROWS rows (a spilled span of phase 18 (a)), as a CUDA
+   graph's replay, and the fold's pull is timed unpacked and packed (KE)
+   in turns.  Then the card's count of the first 80,000
    reads (~9 batches) must equal a plain count of them on the CPU,
    aggregate field for field and finalized spectrum.
 4. Each of KA-KD against its plain version on the same CUDA tensors at
@@ -181,6 +184,18 @@ Phases (any failure raises; nothing is caught):
    RSS so far (VmHWM; also before (a)) and the launches; for (a) KA's
    and KB's launches beside phase 2's; for (c) the ballast and the free
    bytes it left.
+19. The mesh's counting spill, beside phase 18 (d) once (a) and (b) have
+   ended: the 3M reads over two gloo ranks sharing cuda:0 through the
+   launcher (`--mesh 2 -s 5m`) under BFC_TPU_MAX_MERGE_CAP=4194304, (a)
+   with the replicated table and -d, (b) with the sharded table.  Every
+   rank must spill at least once and rank 0 must finalize on the host;
+   in every rank KA, KM, KB, KE, KC, KD and KL (a) or KN (b) must have
+   launched and KJ, KF, KI and KK not; each output must hash as phase
+   2's, and (a)'s dump as phase 2's.  Printed for each: every rank's
+   spills, rows spilled and KE launches, the counting wall beside phase
+   10's or 12's over two gloo ranks, rank 0's gather, finalize and send
+   seconds, and the peak resident set of the two ranks together (sampled
+   from /proc every half second).
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -210,6 +225,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -756,6 +772,15 @@ def check_pack_pull(run):
     r["ms"] = cuda_ms(lambda: sdn.pack_pull(run), 10)
     r["plain_ms"] = cuda_ms(lambda: sdn.pack_pull_plain(run), 3)
     r["bound"] = bound(rows * (3 * 8 + 1 + 2 * 4), rows * OPS_KE_ROW)
+    r["kernel_ms"] = graph_ms([lambda: sdn.pack_pull(run)], chip_probe.REPS)
+    # a spilled span's size: the fold's first SPAN_ROWS rows, a sorted run
+    span = sdn.Run(*(None if c is None else c[:SPAN_ROWS] for c in run))
+    r["span_rows"] = len(span)
+    r["kernel_ms_span"] = graph_ms([lambda: sdn.pack_pull(span)],
+                                   chip_probe.REPS)
+    r["bound_ms_span"] = bound(len(span) * (3 * 8 + 1 + 2 * 4),
+                               len(span) * OPS_KE_ROW)[0]
+    del span
     walls = {"unpacked": [], "packed": []}
     for kind in ("unpacked", "packed", "packed", "unpacked"):
         torch.cuda.synchronize()
@@ -1729,6 +1754,16 @@ def check_profile(head: Path, tmp: Path) -> None:
 
 SPILL_CAP = 1 << 22    # bfc_tpu's default BFC_TPU_MAX_MERGE_CAP (rows)
 SPILL_FREE = 4 << 30   # device_free_bytes that the ballast of (c) leaves
+# the mean spilled span of phase 18 (a) on one H100 80GB HBM3 (700 W):
+# 124,617,502 rows in 20 spills
+SPAN_ROWS = 6_230_875
+MESH_SPILL_KERNELS = ("kmer_stream", "route_rows", "run_combine",
+                      "pack_pull", "cuckoo_build", "kcov_island",
+                      "ec1_search")
+# rank 0's host finalize of the gathered aggregate: no KJ (ret derived
+# on the host), no verdict kernel, no KK
+MESH_SPILL_SILENT = ("derive_ret", "bloom_adjudicate", "first_occurrence",
+                     "finalize_counts")
 
 
 def peak_rss_gib() -> float:
@@ -1867,13 +1902,117 @@ def spill_trim(fq: Path, want_hash: str, unspilled_count_s: float,
     result.write_text(json.dumps(launches))
 
 
-def check_spill(opt, fq: Path, tmp: Path, main, device, trim):
+@contextlib.contextmanager
+def ranks_rss():
+    """The peak, over samples every half second inside the block, of the
+    summed resident set (/proc/<pid>/statm) of the mesh's ranks: this
+    process's children that run bfc_tpu_torch.parallel.multihost (not
+    phase 18 (d)'s process).  The block gets a dict whose "peak_gib" is
+    None where nothing could be read."""
+    got = {"peak_gib": None}
+    stop = threading.Event()
+    me = str(os.getpid())
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def sample():
+        while not stop.wait(0.5):
+            total, seen = 0, False
+            for pid in os.listdir("/proc"):
+                if not pid.isdigit():
+                    continue
+                try:
+                    with open(f"/proc/{pid}/stat") as f:
+                        ppid = f.read().rsplit(")", 1)[1].split()[1]
+                    if ppid != me:
+                        continue
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        if b"parallel.multihost" not in f.read():
+                            continue
+                    with open(f"/proc/{pid}/statm") as f:
+                        total += int(f.read().split()[1]) * page
+                    seen = True
+                except (OSError, IndexError, ValueError):
+                    continue
+            if seen:
+                got["peak_gib"] = max(got["peak_gib"] or 0.0, total / 2**30)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield got
+    finally:
+        stop.set()
+        t.join()
+
+
+def check_mesh_spill(fq: Path, tmp: Path, n_reads: int, main_hash: str,
+                     dump: Path, unspilled):
+    """Phase 19: the mesh's counting spill, two gloo ranks sharing cuda:0
+    under BFC_TPU_MAX_MERGE_CAP=SPILL_CAP, (a) with the replicated table
+    and -d, (b) with the sharded table.  unspilled maps sharded (a bool)
+    to phase 10's or 12's counting wall over two gloo ranks.  Every rank
+    must spill, rank 0 must finalize on the host, check_mesh_run's checks
+    must pass (KE launched in every rank), and (a)'s dump must hash as
+    phase 2's.  Returns each run's launches summed over the ranks."""
+    paths = {}
+    for sharded in (False, True):
+        tag = "(b) sharded" if sharded else "(a) replicated, -d"
+        mout = tmp / "corrected_mesh_spill.fq"
+        mdump = tmp / "mesh_spill.dump"
+        with merge_cap_env(SPILL_CAP), ranks_rss() as rss:
+            mrep = drive_mesh(fq, mout, 2, "gloo", tmp, shard_table=sharded,
+                              flags=() if sharded else ("-d", str(mdump)))
+        table = "sharded" if sharded else "replicated"
+        launched = MESH_SPILL_KERNELS if not sharded else tuple(
+            "cuckoo_build_local" if x == "cuckoo_build" else x
+            for x in MESH_SPILL_KERNELS)
+        silent = MESH_SPILL_SILENT + (
+            ("cuckoo_build",) if sharded else ("cuckoo_build_local",))
+        peak = rss["peak_gib"]
+        print(f"mesh spill {tag}: 2 gloo ranks on cuda:0, cap {SPILL_CAP}; "
+              f"spills by rank {mrep['spills_by_rank']} of "
+              f"{mrep['spilled_rows_by_rank']} rows; KE by rank "
+              f"{[ls['pack_pull'] for ls in mrep['launches_by_rank']]}; "
+              f"counting {mrep['count_s']:.2f} s (unspilled "
+              f"{unspilled[sharded]:.2f}), correction "
+              f"{mrep['correct_s']:.2f} s; rank 0: gather "
+              f"{mrep['gather_s']:.2f} s, {mrep['finalize']} finalize "
+              f"{mrep['finalize_s']:.2f} s (verdict {mrep['verdict']}), "
+              f"entries sent {mrep['send_s']:.2f} s; "
+              f"{mrep['n_aggregated']} distinct k-mers, {mrep['n_kept']} "
+              f"kept; peak RSS of the ranks together "
+              + ("not measured" if peak is None else f"{peak:.2f} GiB")
+              + f", of this process {peak_rss_gib():.2f} GiB; launches by "
+              f"rank {mrep['launches_by_rank']}", flush=True)
+        if min(mrep["spills_by_rank"]) < 1:
+            fail(f"mesh spill {tag}: a rank did not spill")
+        if mrep["finalize"] != "host":
+            fail(f"mesh spill {tag}: rank 0 finalized on the "
+                 f"{mrep['finalize']}, not the host")
+        check_mesh_run(mrep, 2, "gloo", n_reads, launched, silent, mout,
+                       main_hash, table)
+        mout.unlink()
+        if not sharded:
+            if file_hash(mdump) != file_hash(dump):
+                fail("mesh spill: the -d dump differs from phase 2's")
+            mdump.unlink()
+        paths[f"mesh_spill_{table}_gloo_2"] = {
+            name: sum(ls[name] for ls in mrep["launches_by_rank"])
+            for name in SOURCES}
+        print(f"mesh spill {tag}: output byte-identical to the main path's"
+              + ("" if sharded else "; -d dump byte-identical to phase 2's"),
+              flush=True)
+    return paths
+
+
+def check_spill(opt, fq: Path, tmp: Path, main, device, trim, beside=None):
     """Phase 18: the counting spill over the 3M reads.  main, device and
     trim are (count_s, output hash, launches) of phases 2, 7 and 5.  (d)
-    runs in a process of its own beside (a) and (b): at k = 51 its host
-    merges take the lexsort and hold the card idle for minutes.  (c)
-    starts once (d) has ended, as its ballast needs the card alone.
-    Returns each run's launches by path name."""
+    runs in a process of its own beside (a) and (b), and beside(), where
+    given (phase 19): at k = 51 its host merges take the lexsort and hold
+    the card idle for minutes.  (c) starts once (d) has ended, as its
+    ballast needs the card alone.  Returns each run's launches by path
+    name and what beside() returned."""
     print(f"spill: host peak RSS of the process before phase 18 "
           f"{peak_rss_gib():.2f} GiB", flush=True)
     paths = {}
@@ -1894,6 +2033,7 @@ def check_spill(opt, fq: Path, tmp: Path, main, device, trim):
         rep, paths["spill_cap_device"], _ = spill_run(
             "(b) row cap, beside (d)", opt, fq, tmp, SPILL_CAP, main[1],
             device[0], device_finalize=True)
+        other = beside() if beside is not None else None
         trim_out, _ = trim_proc.communicate()
     finally:
         if trim_proc.poll() is None:
@@ -1923,7 +2063,7 @@ def check_spill(opt, fq: Path, tmp: Path, main, device, trim):
         fail("spill (c) ran with a row cap")
     print("spill (c): spilled on the byte rule alone; output byte-identical "
           "to phase 2's", flush=True)
-    return paths
+    return paths, other
 
 
 def main() -> int:
@@ -1940,6 +2080,7 @@ def main() -> int:
         fq, want, count_s, result = args.spill_trim
         spill_trim(Path(fq), want, float(count_s), Path(result))
         return 0
+    t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -2012,8 +2153,12 @@ def main() -> int:
                "run_combine_merges": (merged.max_abs_err, merged.merges,
                                       merged.max_rows)}
         w = res["pack_pull"]["pull_s"]
-        print(f"pull of the {res['pack_pull']['rows']}-row fold: unpacked "
-              f"{w['unpacked']} s, packed by KE {w['packed']} s", flush=True)
+        r = res["pack_pull"]
+        print(f"pull of the {r['rows']}-row fold: unpacked "
+              f"{w['unpacked']} s, packed by KE {w['packed']} s; KE kernel "
+              f"{r['kernel_ms']:.4f} ms on the fold, "
+              f"{r['kernel_ms_span']:.4f} ms on a {r['span_rows']}-row "
+              f"span (bound {r['bound_ms_span']:.4f})", flush=True)
         top_kb = merged.top_kb
         print(f"KB on the top merge ({top_kb['rows']} rows): "
               f"{top_kb['ms']:.3f} ms (median of {MEDIAN_REPS}), bound "
@@ -2305,6 +2450,7 @@ def main() -> int:
 
         # ---- the main path over the mesh, through the launcher
         mesh_launches = {}
+        mesh_gloo_count_s = {}  # sharded -> counting s over two gloo ranks
         rep_bytes = {}
         for sharded in (False, True):
             for n, backend in ((torch.cuda.device_count(), "nccl"),
@@ -2339,6 +2485,8 @@ def main() -> int:
                     + (("cuckoo_build",) if sharded else ()),
                     mout, main_hash, "sharded" if sharded else "replicated")
                 mout.unlink()
+                if backend == "gloo":
+                    mesh_gloo_count_s[sharded] = cs
                 tag = "mesh_sharded" if sharded else "mesh"
                 mesh_launches[f"{tag}_{backend}_{n}"] = {
                     name: sum(ls[name] for ls in mrep["launches_by_rank"])
@@ -2417,14 +2565,25 @@ def main() -> int:
         # ---- --profile (phase 17)
         check_profile(head, tmp)
 
-        # ---- the counting spill (phase 18)
+        # ---- the counting spill (phase 18), and beside its (d) the
+        # mesh's spill (phase 19)
         t0 = time.time()
-        spill_launches = check_spill(
+
+        def mesh_spill():
+            t1 = time.time()
+            got = check_mesh_spill(fq, tmp, n_reads, main_hash, dump,
+                                   mesh_gloo_count_s)
+            print(f"mesh spill: both runs byte-identical to the main path's; "
+                  f"{time.time() - t1:.1f} s", flush=True)
+            return got
+
+        spill_launches, mesh_spill_launches = check_spill(
             opt, fq, tmp, (main_count_s, main_hash, launches),
             (dev_count_s, main_hash, dlaunches),
-            (trim_count_s, trim_hash, tlaunches))
-        print(f"spill: four runs byte-identical to the unspilled ones; "
-              f"{time.time() - t0:.1f} s", flush=True)
+            (trim_count_s, trim_hash, tlaunches), beside=mesh_spill)
+        spill_launches.update(mesh_spill_launches)
+        print(f"spill: four runs byte-identical to the unspilled ones, and "
+              f"the mesh's two; {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2479,7 +2638,8 @@ def main() -> int:
                       "rows_by_R", "cb_local_by_R", "kernel_ms",
                       "kernel_ms_long", "kernel_ms_fold", "probes", "sectors",
                       "bound_ms_two_sectors", "ms_shuffled", "ms_into",
-                      "bound_ms_first_design"):
+                      "bound_ms_first_design", "span_rows",
+                      "kernel_ms_span", "bound_ms_span"):
             if extra in r:
                 row[extra] = r[extra]
         if "kernel_ms" in r:
@@ -2504,6 +2664,7 @@ def main() -> int:
                 res["run_combine_merges"][1:]
         rows.append(row)
     rows += probe_kernel_rows(probe_rows, probe_launches)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

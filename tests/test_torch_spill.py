@@ -11,7 +11,7 @@ model of the card's memory in which the spill rule's free bytes must not
 shrink before the merge they allowed.  End to end, run_device with the
 spill forced (256-read counting batches) against bfc_tpu's run_device
 under the same variable: correction and -1 in both finalize modes, and
--d.  The mesh keeps its builder's spill off.
+-d.  The mesh's spill is tests/test_torch_mesh_spill.py's.
 
 The reads are a tests/datagen.py dataset: a 2 kb genome, 1,500 reads of
 80 bp, 0.3% errors, so that a 256-read batch makes runs of a few thousand
@@ -40,8 +40,6 @@ from bfc_tpu_torch.ops import kmer as tk
 from bfc_tpu_torch.ops import lsm as tlsm
 from bfc_tpu_torch.ops import spectrum_host as tsph
 from bfc_tpu_torch.opts import Opts
-from bfc_tpu_torch.parallel import comm
-from bfc_tpu_torch.parallel import mesh as tmesh
 
 from . import datagen
 
@@ -308,7 +306,6 @@ def test_merge_cap_reads_bfc_tpus_variable(monkeypatch):
     monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", "4194304")
     assert TC.merge_cap() == 1 << 22
     assert TC.AggBuilder(_opts(Opts, 21), "cpu").cap == 1 << 22
-    assert TC.AggBuilder(_opts(Opts, 21), "cpu", spill=False).cap is None
 
 
 # --------------------------------------------------------------------------
@@ -503,32 +500,3 @@ def test_spilled_trim_matches_jax(fastq, jax_outputs, monkeypatch, builders,
     assert report["verdict"] == ("KF" if device_finalize else "host sketch")
     assert report["finalize"] == ("device" if device_finalize else "host")
     assert got == jax_outputs["trimmed"]
-
-
-# --------------------------------------------------------------------------
-# The mesh
-# --------------------------------------------------------------------------
-
-@pytest.fixture
-def one_rank(tmp_path):
-    torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
-        world_size=1)
-    try:
-        yield
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def test_mesh_builder_keeps_its_raise(fastq, monkeypatch, builders, one_rank):
-    """count_file_mesh builds its AggBuilder with the spill off: the cap
-    does not apply, and a merge that does not fit raises."""
-    assert comm.size() == 1
-    monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", str(CAP))
-    ds = tmesh.count_file_mesh(fastq, _opts(Opts, 21), "cpu", batch_reads=256)
-    b = builders[-1]
-    assert not b.spill and b.cap is None and b.spills == 0
-    assert ds.n_reads == 1500
-    monkeypatch.setattr(TC, "merge_on_card", lambda *a: False)
-    with pytest.raises(RuntimeError, match="item 9b"):
-        tmesh.count_file_mesh(fastq, _opts(Opts, 21), "cpu", batch_reads=256)

@@ -305,8 +305,11 @@ def _iter_batches_impl(fn: Optional[str], batch_reads: int, max_len: int = 512,
                 slow_mode = True
                 break
             if r == 0:
-                # incomplete record (needs more input) or over-long seq
-                if eof and consumed.value == 0 and len(sub) > 0:
+                # a record longer than max_len (or, at the end of the
+                # text, one that does not parse): widen the batch and
+                # parse again; else an incomplete record, so read on
+                if (_seq_line_len(buf, consumed_total) > max_len
+                        or (eof and consumed.value == 0 and len(sub) > 0)):
                     if max_len < 1 << 20:
                         max_len *= 2
                         continue
@@ -322,7 +325,9 @@ def _iter_batches_impl(fn: Optional[str], batch_reads: int, max_len: int = 512,
                 seq_off[:r], qual_off[:r], decoded=dec,
             )
             consumed_total += int(consumed.value)
-            if r < B:
+            # a short batch ends where the text does, or before a record
+            # longer than max_len, which the next parse widens the batch for
+            if r < B and _seq_line_len(buf, consumed_total) <= max_len:
                 break
         tail = buf[consumed_total:]
         if eof and (slow_mode or not block):
@@ -335,6 +340,22 @@ def _iter_batches_impl(fn: Optional[str], batch_reads: int, max_len: int = 512,
         )
     if owns:
         fp.close()
+
+
+def _seq_line_len(buf: bytes, at: int) -> int:
+    """Length of the sequence line of the record that starts at buf[at:]
+    (after blank lines), without a trailing CR; -1 where that line does
+    not end in the buffer."""
+    n = len(buf)
+    while at < n and buf[at] in b"\r\n":
+        at += 1
+    head = buf.find(b"\n", at)
+    if head < 0:
+        return -1
+    end = buf.find(b"\n", head + 1)
+    if end < 0:
+        return -1
+    return end - head - 1 - (end > head + 1 and buf[end - 1] == 13)
 
 
 def _reads_from_text(text: str, fn, fp) -> Iterator[slow_io.Read]:

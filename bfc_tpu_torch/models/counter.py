@@ -526,6 +526,34 @@ def usable_sketch(agg, opt: Opts):
     return None
 
 
+def upload_bytes(rows: int, with_ret: bool) -> int:
+    """Device bytes of host_agg_to_run's copy of rows rows: six int64
+    columns, seven with ret, and first_high's uint8 copy."""
+    return rows * (8 * (7 if with_ret else 6) + 1)
+
+
+def check_upload(agg: sph.HostAgg, opt: Opts, device) -> None:
+    """Raise, before a byte is copied, where the device finalize of agg
+    would not fit the card: the upload (upload_bytes), KJ's ret where agg
+    has none, and the verdict's scratch (spectrum.verdict_bytes of the
+    kernel verdict_route picks) against kernels.device_free_bytes.  On
+    the CPU nothing is checked: the plain versions have no such limit."""
+    if torch.device(device).type == "cpu":
+        return
+    rows = len(agg.shard)
+    arr_max = int(agg.first_arr.max()) if rows else 0
+    by = spec.verdict_route(arr_max, rows, opt.bf_shift, None)
+    copy = upload_bytes(rows, agg.ret is not None)
+    ret = 0 if agg.ret is not None else 8 * rows
+    scratch = spec.verdict_bytes(rows, opt.bf_shift, by)
+    free = kernels.device_free_bytes(device)
+    if copy + ret + scratch > free:
+        raise RuntimeError(
+            f"the device finalize of a {rows}-row spilled aggregate needs "
+            f"{copy} bytes for its upload, {ret} for ret and {scratch} for "
+            f"the {by} verdict's scratch, {free} free; {spec.HOST_FINALIZE}")
+
+
 def host_agg_to_run(agg: sph.HostAgg, device) -> sdn.Run:
     """A host aggregate as a Run on device (its ret kept where present)."""
     def col(x, view=None):
@@ -604,11 +632,13 @@ def finalize_spectrum(agg, opt: Opts, device,
     agg is AggBuilder.finish's aggregate.  host=None finalizes a device
     Run on the card, and a HostAgg where BFC_TPU_DEVICE_FINALIZE says
     (the host by default), as bfc_tpu's finalize_spectrum (counter.py:
-    707-725) chooses; host=False takes a HostAgg to the card first."""
+    707-725) chooses; host=False takes a HostAgg to the card first,
+    once check_upload has found room for it."""
     if host is None:
         host = not isinstance(agg, sdn.Run) and not device_finalize_on()
     if not host:
         if not isinstance(agg, sdn.Run):
+            check_upload(agg, opt, device)
             agg = host_agg_to_run(agg, device)
         return finalize_on_device(agg, opt, device)
     if isinstance(agg, sdn.Run):

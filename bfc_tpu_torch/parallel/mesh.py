@@ -310,6 +310,7 @@ def finalize_gathered(cols: list, tree: C.AggBuilder, opt: Opts, device,
     if agg is not None:
         agg = C.with_ret(agg, k, l_pre)
         if on:
+            C.check_upload(agg, opt, device)
             *entries, hist, hist_high, verdict = C.kept_on_device(
                 C.host_agg_to_run(agg, device), opt)
         else:

@@ -1,2 +1,2 @@
-"""Host tools of the port: hash2cnt (a -d dump decoded) and errstat
-(SAM-scored correction quality)."""
+"""Tools of the port: hash2cnt (a -d dump decoded), errstat (SAM-scored
+correction quality) and human_scale (the capacity rehearsal)."""

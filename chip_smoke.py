@@ -3,8 +3,9 @@ kernels, drives the count + correct main path and the trim path (-1) at
 E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
 (-d/-r), then the probe path (chip_probe.py), -R over the main path's
-output, a --profile run and the counting spill to the host, on one card
-and over the mesh, and holds every kernel against its plain PyTorch
+output, a --profile run, the counting spill to the host, on one card
+and over the mesh, the human-scale rehearsal tool at a small size and
+reads of 300-3,000 bp, and holds every kernel against its plain PyTorch
 version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
@@ -159,43 +160,73 @@ Phases (any failure raises; nothing is caught):
    output must hash as the same run's without --profile.  Printed: the
    kernels the trace holds and the share of the traced wall in which the
    card ran one.
-18. The counting spill, over phase 2's 3,000,000 reads, each run through
-   run_device with its launch counts zeroed just before and read just
-   after, and every AggBuilder it makes collected: (a) -s 5m with
+18. The counting spill, over the first 1,000,000 of phase 2's reads (a
+   third, for the time limit), first run unspilled with the host
+   finalize (with -d) and with the device finalize, which must hash
+   equal; then each run through run_device with its launch counts zeroed
+   just before and read just after, and every AggBuilder it makes
+   collected: (a) -s 5m with
    BFC_TPU_MAX_MERGE_CAP=4194304 (bfc_tpu's default cap, set in this
    process), host finalize; (b) the same with the device finalize, where
    the verdict (KF, or KI from 2^32 arrivals), KK and KL must launch on
    the aggregate uploaded from the host and KJ must not (the spilled
    aggregate comes with ret); (c) no cap, with a torch.empty ballast on
-   the card that leaves 4 GiB of device_free_bytes, so that the tree
+   the card that leaves 2 GiB of device_free_bytes, so that the tree
    spills on the byte rule alone; (d) -1 -k51 with the cap of (a), in a
    process of its own (this script with --spill-trim, its launches
-   counted there) beside (a) and (b), since at k = 51 the host merges
-   take the lexsort and last minutes; (c) starts once (d) has ended, as
+   counted there, after an unspilled -1 run there) beside (a) and (b),
+   since at k = 51 the host merges take the lexsort and last minutes;
+   (c) starts once (d) has ended, as
    its ballast needs the card alone.  In each the tree must spill at
    least once, KE must launch once for each spilled span (with a spill
    the last levels spill too, so there is no other pull), and the output
-   must hash as phase 2's ((a)-(c)) or phase 5's ((d)).  Printed for
+   must hash as the unspilled run's.  Printed for
    each: spills and rows spilled, KE's call on each spilled span (CUDA
    events) beside its bound, the pack seconds on the counting thread and
    the worker threads' copy and host-merge seconds (LsmTree.timings), the
    rows the host merges took in, the counting wall beside the unspilled
-   phase's, the device peak beside the ballast, the process's host peak
+   run's, the device peak beside the ballast, the process's host peak
    RSS so far (VmHWM; also before (a)) and the launches; for (a) KA's
-   and KB's launches beside phase 2's; for (c) the ballast and the free
-   bytes it left.
+   and KB's launches beside the unspilled run's; for (c) the ballast and
+   the free bytes it left.
 19. The mesh's counting spill, beside phase 18 (d) once (a) and (b) have
-   ended: the 3M reads over two gloo ranks sharing cuda:0 through the
+   ended: phase 18's reads over two gloo ranks sharing cuda:0 through the
    launcher (`--mesh 2 -s 5m`) under BFC_TPU_MAX_MERGE_CAP=4194304, (a)
    with the replicated table and -d, (b) with the sharded table.  Every
    rank must spill at least once and rank 0 must finalize on the host;
    in every rank KA, KM, KB, KE, KC, KD and KL (a) or KN (b) must have
    launched and KJ, KF, KI and KK not; each output must hash as phase
-   2's, and (a)'s dump as phase 2's.  Printed for each: every rank's
-   spills, rows spilled and KE launches, the counting wall beside phase
-   10's or 12's over two gloo ranks, rank 0's gather, finalize and send
+   18's unspilled run, and (a)'s dump as its dump.  Printed for each:
+   every rank's spills, rows spilled and KE launches, the counting wall
+   beside the unspilled single-card run's, rank 0's gather, finalize and send
    seconds, and the peak resident set of the two ranks together (sampled
    from /proc every half second).
+20. The human-scale rehearsal (bfc_tpu_torch/tools/human_scale.py) in a
+   process of its own, BFC_TPU_MAX_MERGE_CAP unset: 2M reads of 100 bp
+   from a 10 Mb genome at k = 27, a ballast leaving 4 GiB of the card
+   free through the counting, both finalizes on the one aggregate.  The
+   tree must spill on the byte rule alone, every check of the tool must
+   pass (4,096 sampled keys tallied from KA's rows against the final
+   aggregate, its key order, the two finalizes' entries, 1,000 records
+   against refmodel.ec1), and KA, KB, KE, a verdict kernel, KK, KL, KC
+   and KD must have launched.  Printed: the tool's report (spills, rows,
+   walls, device peaks, host peak RSS, correction rate, fallback).
+21. Reads over 504 bp: 200,000 reads of 300-590 bp (merged MiSeq 2x300
+   pairs) and 1,000 of 1,000-3,000 bp, lengths drawn uniformly and the
+   reads shuffled, from a seeded 5 Mb genome with 1% errors on low
+   qualities.  `-s 5m` with each finalize (counts zeroed just before and
+   read just after each; phase 2's or 7's kernels must launch): one
+   record a read, the two outputs hashed equal; 1,000 seeded reads, half
+   over 600 bp, byte-identical to refmodel.ec1 on the host finalize's
+   table.  `-1 -k51`: 1,000 seeded reads trimmed as refmodel.trim_read
+   over the card's Bloom words.  The scalar checks run in processes of
+   their own while KC and KD run on each band's reads (KD timed, the
+   median of 3 calls a batch) at STACK_CAP: the reads past KD's stack
+   must be the run's scalar fallback,
+   at most 0.1% of the reads of at most 590 bp (the longer band's share
+   is printed).  Printed: the walls, KC's and KD's launches, KD's us a
+   read by band, the reads past its stack, and the widest batch the
+   reader made.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -297,16 +328,22 @@ def fail(msg: str):
 # Seeded synthetic reads (bench.py's genome recipe), written with numpy
 # --------------------------------------------------------------------------
 
-def make_reads(glen: int, seed: int, cov: int = 60, rlen: int = 100):
-    """Seeded genome with 10% repeats and its reads: (bases u8 codes
-    [n, rlen], quals u8 ASCII [n, rlen])."""
-    rng = np.random.default_rng(seed)
+def make_genome(glen: int, rng) -> np.ndarray:
+    """A genome of glen random bases with 10% of it in repeats of 2 kb."""
     g = rng.integers(0, 4, glen).astype(np.uint8)
     seg = 2000
     for _ in range(int(glen * 0.1) // seg):
         src = int(rng.integers(0, glen - seg))
         dst = int(rng.integers(0, glen - seg))
         g[dst:dst + seg] = g[src:src + seg]
+    return g
+
+
+def make_reads(glen: int, seed: int, cov: int = 60, rlen: int = 100):
+    """Seeded genome with 10% repeats and its reads: (bases u8 codes
+    [n, rlen], quals u8 ASCII [n, rlen])."""
+    rng = np.random.default_rng(seed)
+    g = make_genome(glen, rng)
     n = glen * cov // rlen
     bases = np.empty((n, rlen), np.uint8)
     quals = np.empty((n, rlen), np.uint8)
@@ -1753,7 +1790,11 @@ def check_profile(head: Path, tmp: Path) -> None:
 
 
 SPILL_CAP = 1 << 22    # bfc_tpu's default BFC_TPU_MAX_MERGE_CAP (rows)
-SPILL_FREE = 4 << 30   # device_free_bytes that the ballast of (c) leaves
+SPILL_FREE = 2 << 30   # device_free_bytes that the ballast of (c) leaves
+# the reads of phases 18 and 19, the first of phase 2's: a third of them
+# keeps the script within its time limit beside phases 20 and 21 (at 3M
+# reads (d)'s host merges took ~345 s on one H100 80GB HBM3 at 700 W)
+SPILL_READS = 1_000_000
 # the mean spilled span of phase 18 (a) on one H100 80GB HBM3 (700 W):
 # 124,617,502 rows in 20 spills
 SPAN_ROWS = 6_230_875
@@ -1889,16 +1930,21 @@ def spill_run(tag: str, o, fq: Path, tmp: Path, cap, want_hash: str,
     return rep, launches, b
 
 
-def spill_trim(fq: Path, want_hash: str, unspilled_count_s: float,
-               result: Path) -> None:
+def spill_trim(fq: Path, result: Path) -> None:
     """Phase 18 (d), in a process of its own (this script with
-    --spill-trim): -1 -k51 under the cap of (a), its launch counts
-    written to result as JSON."""
+    --spill-trim): -1 -k51 unspilled, then under the cap of (a), which
+    must hash as the unspilled run; its launch counts written to result
+    as JSON."""
     topt = Opts()
     topt.k = TRIM_K
     topt.filter_mode = True
+    ref = result.parent / "spill_trim_ref.fq"
+    with merge_cap_env(None):
+        rep, _, _ = drive(topt, fq, ref)
+    want = file_hash(ref)
+    ref.unlink()
     _, launches, _ = spill_run("(d) trim, row cap", topt, fq, result.parent,
-                               SPILL_CAP, want_hash, unspilled_count_s)
+                               SPILL_CAP, want, rep["count_s"])
     result.write_text(json.dumps(launches))
 
 
@@ -1949,11 +1995,12 @@ def check_mesh_spill(fq: Path, tmp: Path, n_reads: int, main_hash: str,
                      dump: Path, unspilled):
     """Phase 19: the mesh's counting spill, two gloo ranks sharing cuda:0
     under BFC_TPU_MAX_MERGE_CAP=SPILL_CAP, (a) with the replicated table
-    and -d, (b) with the sharded table.  unspilled maps sharded (a bool)
-    to phase 10's or 12's counting wall over two gloo ranks.  Every rank
-    must spill, rank 0 must finalize on the host, check_mesh_run's checks
-    must pass (KE launched in every rank), and (a)'s dump must hash as
-    phase 2's.  Returns each run's launches summed over the ranks."""
+    and -d, (b) with the sharded table.  unspilled is the unspilled
+    single-card run's counting wall, main_hash and dump its output's hash
+    and its -d dump.  Every rank must spill, rank 0 must finalize on the
+    host, check_mesh_run's checks must pass (KE launched in every rank),
+    and (a)'s dump must equal the single-card one.  Returns each run's
+    launches summed over the ranks."""
     paths = {}
     for sharded in (False, True):
         tag = "(b) sharded" if sharded else "(a) replicated, -d"
@@ -1973,8 +2020,8 @@ def check_mesh_spill(fq: Path, tmp: Path, n_reads: int, main_hash: str,
               f"spills by rank {mrep['spills_by_rank']} of "
               f"{mrep['spilled_rows_by_rank']} rows; KE by rank "
               f"{[ls['pack_pull'] for ls in mrep['launches_by_rank']]}; "
-              f"counting {mrep['count_s']:.2f} s (unspilled "
-              f"{unspilled[sharded]:.2f}), correction "
+              f"counting {mrep['count_s']:.2f} s (one card, unspilled "
+              f"{unspilled:.2f}), correction "
               f"{mrep['correct_s']:.2f} s; rank 0: gather "
               f"{mrep['gather_s']:.2f} s, {mrep['finalize']} finalize "
               f"{mrep['finalize_s']:.2f} s (verdict {mrep['verdict']}), "
@@ -1994,42 +2041,43 @@ def check_mesh_spill(fq: Path, tmp: Path, n_reads: int, main_hash: str,
         mout.unlink()
         if not sharded:
             if file_hash(mdump) != file_hash(dump):
-                fail("mesh spill: the -d dump differs from phase 2's")
+                fail("mesh spill: the -d dump differs from the unspilled "
+                     "run's")
             mdump.unlink()
         paths[f"mesh_spill_{table}_gloo_2"] = {
             name: sum(ls[name] for ls in mrep["launches_by_rank"])
             for name in SOURCES}
-        print(f"mesh spill {tag}: output byte-identical to the main path's"
-              + ("" if sharded else "; -d dump byte-identical to phase 2's"),
-              flush=True)
+        print(f"mesh spill {tag}: output byte-identical to the unspilled "
+              "run's" + ("" if sharded else "; -d dump byte-identical to "
+                         "its dump"), flush=True)
     return paths
 
 
-def check_spill(opt, fq: Path, tmp: Path, main, device, trim, beside=None):
-    """Phase 18: the counting spill over the 3M reads.  main, device and
-    trim are (count_s, output hash, launches) of phases 2, 7 and 5.  (d)
-    runs in a process of its own beside (a) and (b), and beside(), where
-    given (phase 19): at k = 51 its host merges take the lexsort and hold
-    the card idle for minutes.  (c) starts once (d) has ended, as its
-    ballast needs the card alone.  Returns each run's launches by path
-    name and what beside() returned."""
+def check_spill(opt, fq: Path, tmp: Path, main, device, beside=None):
+    """Phase 18: the counting spill over fq, the first SPILL_READS reads.
+    main and device are (count_s, output hash, launches) of their
+    unspilled runs with the host and the device finalize.  (d) runs in a
+    process of its own beside (a) and (b), and beside(), where given
+    (phase 19): at k = 51 its host merges take the lexsort and hold the
+    card idle.  (c) starts once (d) has ended, as its ballast needs the
+    card alone.  Returns each run's launches by path name and what
+    beside() returned."""
     print(f"spill: host peak RSS of the process before phase 18 "
           f"{peak_rss_gib():.2f} GiB", flush=True)
     paths = {}
     result = tmp / "spill_trim.json"
     trim_proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--spill-trim",
-         str(fq), trim[1], repr(trim[0]), str(result)],
-        stdout=subprocess.PIPE, text=True)
+         str(fq), str(result)], stdout=subprocess.PIPE, text=True)
     try:
         _, paths["spill_cap_host"], _ = spill_run(
             "(a) row cap, beside (d)", opt, fq, tmp, SPILL_CAP, main[1],
             main[0])
         a = paths["spill_cap_host"]
         print(f"spill (a): KA {a['kmer_stream']} launches, KB "
-              f"{a['run_combine']} (phase 2: KA {main[2]['kmer_stream']}, "
+              f"{a['run_combine']} (unspilled: KA {main[2]['kmer_stream']}, "
               f"KB {main[2]['run_combine']}); output byte-identical to "
-              "phase 2's", flush=True)
+              "the unspilled run's", flush=True)
         rep, paths["spill_cap_device"], _ = spill_run(
             "(b) row cap, beside (d)", opt, fq, tmp, SPILL_CAP, main[1],
             device[0], device_finalize=True)
@@ -2050,20 +2098,398 @@ def check_spill(opt, fq: Path, tmp: Path, main, device, trim, beside=None):
     print(f"spill (b): verdict {rep['verdict']} on the uploaded aggregate, "
           f"KK {lb['finalize_counts']}, KL {lb['cuckoo_build']} launches; "
           f"the aggregate came with ret, KJ {lb['derive_ret']} launches; "
-          "output byte-identical to phase 2's", flush=True)
+          "output byte-identical to the unspilled run's", flush=True)
     sys.stdout.write(trim_out)
     if trim_proc.returncode != 0:
         fail(f"spill (d) exited with {trim_proc.returncode}")
     paths["spill_cap_trim"] = json.loads(result.read_text())
-    print("spill (d): output byte-identical to phase 5's", flush=True)
+    print("spill (d): output byte-identical to the unspilled -1 run's",
+          flush=True)
     _, paths["spill_bytes_host"], b = spill_run(
         "(c) bytes", opt, fq, tmp, None, main[1], main[0],
         free_left=SPILL_FREE)
     if b.cap is not None:
         fail("spill (c) ran with a row cap")
     print("spill (c): spilled on the byte rule alone; output byte-identical "
-          "to phase 2's", flush=True)
+          "to the unspilled run's", flush=True)
     return paths, other
+
+
+def check_spills(opt, bases, quals, tmp: Path):
+    """Phases 18 and 19 over the first SPILL_READS reads: their unspilled
+    runs with the host finalize (and -d) and with the device finalize,
+    which must hash equal, then check_spill with check_mesh_spill beside
+    its (d).  Returns the launches by path name."""
+    t0 = time.time()
+    fq = tmp / "reads_spill.fq"
+    write_fastq(fq, bases[:SPILL_READS], quals[:SPILL_READS])
+    out, dump = tmp / "spill_ref.fq", tmp / "spill_ref.dump"
+    refs = []
+    for fin in (False, True):
+        rep, launches, _ = drive(opt, fq, out, device_finalize=fin,
+                                 **({} if fin else {"out_hash": str(dump)}))
+        refs.append((rep["count_s"], file_hash(out), launches))
+    if refs[0][1] != refs[1][1]:
+        fail("spill: the unspilled runs' outputs differ by finalize")
+    out.unlink()
+    print(f"spill: the first {SPILL_READS} reads unspilled: counting "
+          f"{refs[0][0]:.2f} s (host finalize), {refs[1][0]:.2f} s (device "
+          f"finalize), outputs hashed equal; {time.time() - t0:.1f} s",
+          flush=True)
+
+    def mesh_spill():
+        t1 = time.time()
+        got = check_mesh_spill(fq, tmp, SPILL_READS, refs[0][1], dump,
+                               refs[0][0])
+        print(f"mesh spill: both runs byte-identical to the unspilled run's; "
+              f"{time.time() - t1:.1f} s", flush=True)
+        return got
+
+    paths, mesh_paths = check_spill(opt, fq, tmp, refs[0], refs[1],
+                                    beside=mesh_spill)
+    paths.update(mesh_paths)
+    fq.unlink()
+    dump.unlink()
+    print(f"spill: four runs byte-identical to the unspilled ones, and "
+          f"the mesh's two; {time.time() - t0:.1f} s", flush=True)
+    return paths
+
+
+# --------------------------------------------------------------------------
+# Phase 20: the human-scale rehearsal tool, small
+# --------------------------------------------------------------------------
+
+# bfc_tpu_torch.tools.human_scale at a size that spills on the byte rule
+# alone beside a ballast (a 10 Mb genome: ~4.5x10^7 rows against 4 GiB
+# free; 3M reads over 15 Mb took 107.9-132.8 s on one H100 80GB HBM3 at
+# 700 W, and 4M over 20 Mb beside 6 GiB 112-119 s)
+HUMAN_ARGS = ("--reads", "2e6", "--genome", "10e6", "--k", "27",
+              "--both-finalize", "--leave-free", "4")
+# KA-KE counting and spilling, the device finalize of the uploaded
+# aggregate (a verdict kernel, KK, KL), and the correction
+HUMAN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "finalize_counts",
+                 "cuckoo_build", "kcov_island", "ec1_search")
+
+
+def check_human_scale():
+    """Phase 20: the tool in a process of its own, BFC_TPU_MAX_MERGE_CAP
+    unset.  Its checks must pass, the tree must have spilled, and its
+    launches must include HUMAN_KERNELS and a verdict kernel.  Returns
+    its report."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BFC_TPU_MAX_MERGE_CAP", "BFC_TPU_DEVICE_FINALIZE")}
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "bfc_tpu_torch.tools.human_scale",
+                        *HUMAN_ARGS], env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.PIPE, text=True)
+    wall = time.time() - t0
+    for ln in r.stdout.splitlines()[:-1]:
+        print(f"  {ln}", flush=True)
+    if r.returncode != 0:
+        sys.stdout.write(r.stderr[-4000:])
+        fail(f"human_scale exited with {r.returncode}")
+    rep = json.loads(r.stdout.splitlines()[-1])
+    fin = rep["finalize_modes"]
+    print(f"human scale ({' '.join(HUMAN_ARGS)}): {rep['reads']} reads "
+          f"({rep['gbp']:.2f} Gbp, k {rep['k']}); {rep['rows_aggregated']} "
+          f"rows aggregated, {rep['entries']} kept; {rep['spills']} spills "
+          f"of {rep['spilled_rows']} rows on the byte rule (ballast "
+          f"{rep['ballast_bytes']} bytes, {rep['free_beside_ballast']} "
+          f"free), host merges of {rep['host_merge_rows']} rows, "
+          f"{rep['lsm_timings']}; counting {rep['count_s']:.2f} s "
+          f"({rep['count_reads_per_s']:.0f} reads/s); finalize host "
+          f"{fin['host']['s']:.2f} s, device {fin['device']['s']:.2f} s "
+          f"({fin['device']['verdict']}; c_bits {fin['host']['c_bits']}, "
+          f"table {fin['host']['table_bytes']} bytes); device peaks "
+          f"counting {rep['count_peak_bytes'] / 2**30:.2f} GiB beside the "
+          f"ballast, device finalize {fin['device']['peak_bytes'] / 2**30:.2f}"
+          f", correction {rep['correct_peak_bytes'] / 2**30:.2f}; host peak "
+          f"RSS {rep['host_peak_rss_bytes'] / 2**30:.2f} GiB; correction "
+          f"{rep['correct_reads_per_s']:.0f} reads/s, fallback share "
+          f"{rep['fallback_share']}; checks {rep['checks']}; launches "
+          f"{rep['launches']}; {wall:.1f} s", flush=True)
+    if not rep["ok"]:
+        fail("human_scale: a check failed")
+    if rep["spills"] < 1 or rep["merge_cap"] is not None:
+        fail("human_scale: the tree did not spill on the byte rule")
+    need_launched(rep["launches"], HUMAN_KERNELS, "the human-scale tool")
+    if not (rep["launches"]["bloom_adjudicate"]
+            or rep["launches"]["first_occurrence"]):
+        fail("human_scale: no verdict kernel launched")
+    return rep
+
+
+# --------------------------------------------------------------------------
+# Phase 21: reads over 504 bp end to end
+# --------------------------------------------------------------------------
+
+LONG_BANDS = ((200_000, 300, 590), (1_000, 1_000, 3_000))  # reads, lengths
+LONG_SAMPLE_AT = 600    # half the sampled reads are longer than this
+LONG_FALLBACK = 0.001   # fallback share allowed up to LONG_SAMPLE_AT bp
+POOL_WORKERS = 6        # host processes of the scalar checks
+_pool = {}
+
+
+def make_long_reads(glen: int, seed: int):
+    """LONG_BANDS' reads of a seeded genome (make_genome), their lengths
+    drawn uniformly in each band and the reads shuffled, half reverse
+    complemented, 1% substitution errors on low qualities: (lens i64
+    [n], offsets i64 [n], bases u8 codes and quals u8 ASCII, flat)."""
+    rng = np.random.default_rng(seed)
+    g = make_genome(glen, rng)
+    lens = np.concatenate([rng.integers(lo, hi + 1, n)
+                           for n, lo, hi in LONG_BANDS])
+    lens = lens[rng.permutation(len(lens))]
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    total = int(lens.sum())
+    start = np.repeat(rng.integers(0, glen - lens), lens)
+    rc = np.repeat(rng.random(len(lens)) < 0.5, lens)
+    j = np.arange(total) - np.repeat(offs, lens)
+    flat = g[np.where(rc, start + np.repeat(lens, lens) - 1 - j, start + j)]
+    flat = np.where(rc, 3 - flat, flat)
+    err = rng.random(total) < 0.01
+    bases = np.where(err, (flat + rng.integers(1, 4, total)) % 4,
+                     flat).astype(np.uint8)
+    quals = np.where(err, 35 + rng.integers(0, 13, total),
+                     63 + rng.integers(0, 10, total)).astype(np.uint8)
+    return lens, offs, bases, quals
+
+
+def write_fastq_varlen(path: Path, lens, offs, bases, quals) -> None:
+    """Records @r%08d / seq / + / qual of the given lengths, built as one
+    byte array."""
+    n = len(lens)
+    size = 15 + 2 * lens
+    at = np.concatenate([[0], np.cumsum(size)[:-1]])
+    out = np.empty(int(size.sum()), np.uint8)
+    digits = (np.arange(n)[:, None] // 10 ** np.arange(7, -1, -1)) % 10
+    head = np.concatenate([np.full((n, 2), [ord("@"), ord("r")], np.uint8),
+                           (48 + digits).astype(np.uint8),
+                           np.full((n, 1), 10, np.uint8)], axis=1)
+    out[at[:, None] + np.arange(11)] = head
+    j = np.arange(len(bases)) - np.repeat(offs, lens)
+    seq_at = np.repeat(at + 11, lens) + j
+    out[seq_at] = np.frombuffer(b"ACGT", np.uint8)[bases]
+    out[(at + 11 + lens)[:, None] + np.arange(3)] = [10, ord("+"), 10]
+    out[seq_at + np.repeat(lens, lens) + 3] = quals
+    out[at + size - 1] = 10
+    out.tofile(path)
+
+
+def read_text(lens, offs, bases, quals, i: int):
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a, n = int(offs[i]), int(lens[i])
+    return (acgt[bases[a:a + n]].tobytes().decode(),
+            quals[a:a + n].tobytes().decode())
+
+
+def _pool_init(table, tmeta, words, bmeta, opt, topt, mode) -> None:
+    """A checking process: the host copies of the card's table and Bloom
+    words, memory-mapped from the files the parent wrote."""
+    t = spec.SpecTable(torch.from_numpy(np.load(table)), *tmeta)
+    _pool["probe"] = IntProbe(t)
+    bloom = TT.DeviceBloom(torch.from_numpy(np.load(words)), *bmeta)
+    _pool["bloom"] = TT.WordsProbe(bloom)
+    _pool.update(opt=opt, topt=topt, mode=mode)
+
+
+def _pool_correct(item):
+    """One read corrected by refmodel.ec1 and formatted as the emit does."""
+    i, seq, qual = item
+    opt = _pool["opt"]
+    st, s2, q2 = M.ec1(opt, _pool["probe"], _pool["mode"], seq, qual)
+    r = Read(name=f"r{i:08d}", comment=None, seq=s2, qual=q2)
+    r.aux, r.aux2 = pack_stats(st)
+    w = OutputWriter()
+    format_corrected(r, opt.no_qual, False, opt.discard, w)
+    return i, w.getbytes().split(b"\n")[:4], st.n_ec > 0
+
+
+def _pool_trim(item):
+    i, seq, qual = item
+    return (i,) + tuple(M.trim_read(_pool["topt"], _pool["bloom"], seq, qual))
+
+
+def output_records(path: Path, n: int):
+    lines = path.read_bytes().split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()
+    if len(lines) % 4:
+        fail(f"{path.name}: {len(lines)} lines, not whole records")
+    if n is not None and len(lines) != 4 * n:
+        fail(f"{path.name}: {len(lines) // 4} records for {n} reads")
+    return lines
+
+
+def kd_by_band(ds, opt, reads, dev):
+    """KC, then KD (CUDA events, the median of 3 calls) on each band's
+    reads in batches of at most srch.CORRECT_BATCH, padded to the band's
+    longest read rounded to 32, as Corrector.device_step gives them: the
+    reads, KD's ms, us a read, and the reads past KD's stack."""
+    lens, offs, bases, quals = reads
+    out = {}
+    for _, lo, hi in LONG_BANDS:
+        idx = np.nonzero((lens >= lo) & (lens <= hi))[0]
+        L = (int(lens[idx].max()) + 31) // 32 * 32
+        ms = 0.0
+        ovf = 0
+        for a in range(0, len(idx), srch.CORRECT_BATCH):
+            part = idx[a:a + srch.CORRECT_BATCH]
+            B = len(part)
+            b = np.full((B, L), 4, np.uint8)
+            q = np.zeros((B, L), bool)
+            rows = np.repeat(np.arange(B), lens[part])
+            cols = np.arange(len(rows)) - np.repeat(
+                np.concatenate([[0], np.cumsum(lens[part])[:-1]]), lens[part])
+            src = np.repeat(offs[part], lens[part]) + cols
+            b[rows, cols] = bases[src]
+            q[rows, cols] = quals[src].astype(np.int32) - 33 >= opt.q
+            bt, qt = torch.from_numpy(b).to(dev), torch.from_numpy(q).to(dev)
+            lt = torch.from_numpy(lens[part].astype(np.int32)).to(dev)
+            _, lcov, hcov, isl = ann.kcov_island(ds.table, bt, lt,
+                                                 opt.min_cov)
+
+            def kd():
+                return srch.ec1_search(ds.table, opt, ds.mode, bt, qt, lt,
+                                       lcov, hcov, isl)
+            ms += cuda_median_ms(kd, 3)
+            ovf += int(kd()[1][:, srch.OVERFLOW].sum())
+        out[(lo, hi)] = {"reads": len(idx), "slots": L, "kd_ms": ms,
+                         "us_per_read": ms * 1e3 / len(idx), "overflow": ovf}
+    return out
+
+
+def check_long_reads(tmp: Path, seed: int, dev):
+    """Phase 21.  Returns the launches of its three runs by path name."""
+    import multiprocessing as mp
+
+    t_phase = time.time()
+    t0 = time.time()
+    reads = make_long_reads(5_000_000, seed + 21)
+    lens, offs, bases, quals = reads
+    n = len(lens)
+    fq = tmp / "long.fq"
+    write_fastq_varlen(fq, *reads)
+    widths = max(rb.bases.shape[1] for rb in FR.iter_batches(
+        str(fq), srch.CORRECT_BATCH))
+    print(f"long reads: {n} reads ({', '.join(f'{c} of {lo}-{hi} bp' for c, lo, hi in LONG_BANDS)}; "
+          f"{int(lens.sum())} bases) from a 5 Mb genome, "
+          f"{fq.stat().st_size} bytes of FASTQ; the reader's batches "
+          f"widened to {widths} slots; {time.time() - t0:.1f} s", flush=True)
+    opt = Opts()
+    opt.apply_genome_size(cli.parse_size("5m"))
+    paths, hashes = {}, {}
+    for fin in (False, True):
+        name = "long_reads_" + ("device" if fin else "host") + "_finalize"
+        out = tmp / f"{name}.fq"
+        rep, launches, peak = drive(opt, fq, out, device_finalize=fin)
+        need_launched(launches, MAIN_DEVICE_KERNELS if fin else MAIN_KERNELS,
+                      f"the long reads ({name})")
+        output_records(out, n)
+        hashes[fin] = file_hash(out)
+        paths[name] = launches
+        if fin:
+            out.unlink()
+        else:
+            ds, fallback = rep["spectrum"], rep["n_fallback"]
+        print(f"long reads, {rep['finalize']} finalize: counting "
+              f"{rep['count_s']:.2f} s, correction {rep['correct_s']:.2f} s "
+              f"({n / rep['correct_s']:.0f} reads/s); {rep['n_kept']} "
+              f"entries kept, c_bits {rep['c_bits']}; scalar fallback "
+              f"{rep['n_fallback']} reads; device peaks counting "
+              f"{rep['count_peak_bytes'] / 2**30:.2f} GiB, correction "
+              f"{rep['correct_peak_bytes'] / 2**30:.2f}; KC "
+              f"{launches['kcov_island']}, KD {launches['ec1_search']} "
+              f"launches", flush=True)
+    if hashes[False] != hashes[True]:
+        fail("long reads: the two finalizes' outputs differ")
+    topt = Opts()
+    topt.k = TRIM_K
+    topt.filter_mode = True
+    trim_fq = tmp / "long_trim.fq"
+    trep, tlaunches, _ = drive(topt, fq, trim_fq)
+    need_launched(tlaunches, TRIM_KERNELS, "the long reads' trim")
+    paths["long_reads_trim"] = tlaunches
+    print(f"long reads, -1 -k{TRIM_K}: counting {trep['count_s']:.2f} s, "
+          f"trim {trep['trim_s']:.2f} s; KH {tlaunches['max_streak']} "
+          f"launches", flush=True)
+
+    # the scalar checks, in processes of their own, while KD is timed
+    table = tmp / "long_table.npy"
+    words = tmp / "long_words.npy"
+    np.save(table, ds.table.table.cpu().numpy())
+    bloom = trep["bloom"]
+    np.save(words, bloom.words.cpu().numpy())
+    rng = np.random.default_rng(seed + 22)
+    long_idx = np.nonzero(lens > LONG_SAMPLE_AT)[0]
+    short_idx = np.nonzero(lens <= LONG_SAMPLE_AT)[0]
+    half = SAMPLE_READS // 2
+    pick = np.sort(np.concatenate([rng.choice(long_idx, half, replace=False),
+                                   rng.choice(short_idx, half,
+                                              replace=False)]))
+    tpick = np.sort(rng.choice(n, SAMPLE_READS, replace=False))
+    t = ds.table
+    ctx = mp.get_context("spawn")
+    t0 = time.time()
+    with ctx.Pool(POOL_WORKERS, _pool_init,
+                  (str(table), (t.k, t.l_pre, t.kb_bits, t.c_bits),
+                   str(words), (bloom.bf_shift, bloom.n_hashes), opt, topt,
+                   ds.mode)) as pool:
+        corr = pool.map_async(_pool_correct, [
+            (int(i),) + read_text(*reads, int(i)) for i in pick], chunksize=4)
+        trim = pool.map_async(_pool_trim, [
+            (int(i),) + read_text(*reads, int(i)) for i in tpick],
+            chunksize=16)
+        bands = kd_by_band(ds, opt, reads, dev)
+        corr, trim = corr.get(), trim.get()
+    pool_s = time.time() - t0
+    for (lo, hi), b in bands.items():
+        print(f"long reads, KD on the {b['reads']} reads of {lo}-{hi} bp "
+              f"({b['slots']} slots): {b['kd_ms']:.3f} ms, "
+              f"{b['us_per_read']:.3f} us a read (median of 3 calls a "
+              f"batch); {b['overflow']} reads past KD's stack", flush=True)
+    short = bands[LONG_BANDS[0][1:]]["overflow"]
+    longer = bands[LONG_BANDS[1][1:]]["overflow"]
+    print(f"long reads: fallback share {short / LONG_BANDS[0][0]:.6f} up to "
+          f"{LONG_BANDS[0][2]} bp, {longer / LONG_BANDS[1][0]:.6f} for "
+          f"{LONG_BANDS[1][1]}-{LONG_BANDS[1][2]} bp; the run's scalar "
+          f"fallback {fallback} reads", flush=True)
+    if short + longer != fallback:
+        fail(f"long reads: {short} + {longer} reads past KD's stack, but "
+             f"{fallback} fell back in the run")
+    if short > LONG_FALLBACK * LONG_BANDS[0][0]:
+        fail(f"long reads: {short} reads of at most {LONG_BANDS[0][2]} bp "
+             "fell back, above 0.1%")
+    lines = output_records(tmp / "long_reads_host_finalize.fq", n)
+    differ = sum(rec != lines[4 * i:4 * i + 4] for i, rec, _ in corr)
+    fixed = sum(c for _, _, c in corr)
+    if differ:
+        fail(f"long reads: {differ} of {len(corr)} sampled records differ "
+             "from refmodel.ec1")
+    tlines = output_records(trim_fq, None)
+    where = {tlines[j][1:]: j for j in range(0, len(tlines), 4)}
+    tdiffer = kept = 0
+    for i, keep, s2, q2 in trim:
+        j = where.get(b"r%08d" % i)
+        if keep:
+            kept += 1
+            want = [b"@r%08d" % i, s2.encode(), b"+", q2.encode()]
+            tdiffer += j is None or tlines[j:j + 4] != want
+        else:
+            tdiffer += j is not None
+    if tdiffer:
+        fail(f"long reads: {tdiffer} of {len(trim)} sampled reads trim "
+             "otherwise than refmodel.trim_read")
+    print(f"long reads: both finalizes hash equal, one record a read; "
+          f"{len(corr)} sampled reads ({half} over {LONG_SAMPLE_AT} bp, "
+          f"{fixed} corrected) byte-identical to refmodel.ec1, "
+          f"{len(trim)} trimmed as refmodel.trim_read ({kept} kept, "
+          f"{len(tlines) // 4} records out); scalar checks {pool_s:.1f} s "
+          f"in {POOL_WORKERS} processes beside KD's timing; phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    for f in (fq, trim_fq, table, words, tmp / "long_reads_host_finalize.fq"):
+        f.unlink()
+    return paths
 
 
 def main() -> int:
@@ -2071,14 +2497,13 @@ def main() -> int:
     ap.add_argument("--genome", type=int, default=5_000_000,
                     help="synthetic genome length in bases [5,000,000]")
     ap.add_argument("--seed", type=int, default=1234)
-    ap.add_argument("--spill-trim", nargs=4, help=argparse.SUPPRESS)
+    ap.add_argument("--spill-trim", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.spill_trim:
-        fq, want, count_s, result = args.spill_trim
-        spill_trim(Path(fq), want, float(count_s), Path(result))
+        spill_trim(*(Path(a) for a in args.spill_trim))
         return 0
     t_start = time.time()
     dev = torch.device("cuda")
@@ -2110,7 +2535,6 @@ def main() -> int:
         dump = tmp / "spectrum.dump"
         report, launches, peak = drive(opt, fq, out_fq, out_hash=str(dump))
         cs, es = report["count_s"], report["correct_s"]
-        main_count_s = cs
         print(f"main path (k={opt.k}, -b{opt.bf_shift}): counting {cs:.2f} s "
               f"({n_reads / cs:.0f} reads/s), correction {es:.2f} s "
               f"({n_reads / es:.0f} reads/s), end to end "
@@ -2228,7 +2652,6 @@ def main() -> int:
         trim_fq = tmp / "trimmed.fq"
         trep, tlaunches, tpeak = drive(topt, fq, trim_fq)
         cs, ts = trep["count_s"], trep["trim_s"]
-        trim_count_s = cs
         print(f"trim path (-1 -k{topt.k}, -b{topt.bf_shift}, verdict "
               f"{trep['verdict']}): counting {cs:.2f} s, trim {ts:.2f} s, end "
               f"to end {n_reads / (cs + ts):.0f} reads/s; reads kept "
@@ -2287,7 +2710,6 @@ def main() -> int:
         dout = tmp / "corrected_device.fq"
         drep, dlaunches, dpeak = drive(opt, fq, dout, device_finalize=True)
         cs, es = drep["count_s"], drep["correct_s"]
-        dev_count_s = cs
         print(f"main path, device finalize (verdict {drep['verdict']}): "
               f"counting {cs:.2f} s, correction {es:.2f} s, end to end "
               f"{n_reads / (cs + es):.0f} reads/s; {drep['n_aggregated']} "
@@ -2450,7 +2872,6 @@ def main() -> int:
 
         # ---- the main path over the mesh, through the launcher
         mesh_launches = {}
-        mesh_gloo_count_s = {}  # sharded -> counting s over two gloo ranks
         rep_bytes = {}
         for sharded in (False, True):
             for n, backend in ((torch.cuda.device_count(), "nccl"),
@@ -2485,8 +2906,6 @@ def main() -> int:
                     + (("cuckoo_build",) if sharded else ()),
                     mout, main_hash, "sharded" if sharded else "replicated")
                 mout.unlink()
-                if backend == "gloo":
-                    mesh_gloo_count_s[sharded] = cs
                 tag = "mesh_sharded" if sharded else "mesh"
                 mesh_launches[f"{tag}_{backend}_{n}"] = {
                     name: sum(ls[name] for ls in mrep["launches_by_rank"])
@@ -2567,23 +2986,11 @@ def main() -> int:
 
         # ---- the counting spill (phase 18), and beside its (d) the
         # mesh's spill (phase 19)
-        t0 = time.time()
+        spill_launches = check_spills(opt, bases, quals, tmp)
 
-        def mesh_spill():
-            t1 = time.time()
-            got = check_mesh_spill(fq, tmp, n_reads, main_hash, dump,
-                                   mesh_gloo_count_s)
-            print(f"mesh spill: both runs byte-identical to the main path's; "
-                  f"{time.time() - t1:.1f} s", flush=True)
-            return got
-
-        spill_launches, mesh_spill_launches = check_spill(
-            opt, fq, tmp, (main_count_s, main_hash, launches),
-            (dev_count_s, main_hash, dlaunches),
-            (trim_count_s, trim_hash, tlaunches), beside=mesh_spill)
-        spill_launches.update(mesh_spill_launches)
-        print(f"spill: four runs byte-identical to the unspilled ones, and "
-              f"the mesh's two; {time.time() - t0:.1f} s", flush=True)
+        # ---- the human-scale tool (phase 20), reads over 504 bp (21)
+        human = check_human_scale()
+        long_launches = check_long_reads(tmp, args.seed, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2592,7 +2999,8 @@ def main() -> int:
              "trim_device_finalize": dtlaunches,
              "trim_device_finalize_from_2^33": ftlaunches,
              "main_count_device_finalize_from_2^33": fclaunches,
-             **mesh_launches, **spill_launches}
+             **mesh_launches, **spill_launches,
+             "human_scale": human["launches"], **long_launches}
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
         r = res[name]

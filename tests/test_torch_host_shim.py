@@ -524,6 +524,45 @@ def test_kc_kd_bodies_match_plain_on_refine_codes(shim, spectrum, caps):
     assert int(fixed.sum()) > 20
 
 
+LONG_LENS = (505, 513, 640, 777, 1024, 1500, 2000)
+
+
+@pytest.mark.parametrize("low_q", [False, True], ids=["quals", "all-low"])
+def test_kd_body_matches_plain_on_long_reads(shim, spectrum, low_q):
+    """Reads of 505-2,000 bp from the spectrum's genome (1% errors), with
+    their qualities or all of them low: every read past 512 bp outgrows
+    pass 1's 512-entry stack and is deferred to pass 2, and at k = 21
+    the reads of 1,024 bp and more pass the 4,096 steps of a direction
+    (at k = 33 the 1,024 bp read with its qualities), so KD flags them
+    for the scalar fallback.  Every column, the overflow flags among
+    them, and the bases equal the plain version's."""
+    opt, ds, *_ = spectrum
+    t = ds.table
+    genome = datagen.make_genome(12000, seed=61)
+    reads = [datagen.simulate_reads(genome, 1, read_len=n, err_rate=0.01,
+                                    seed=100 + i)[0]
+             for i, n in enumerate(LONG_LENS)]
+    b, _, ln = tk.encode_batch([s for s, _ in reads], None, opt.q)
+    qf = np.zeros(b.shape, bool)
+    if not low_q:
+        for i, (_, q) in enumerate(reads):
+            qf[i, :len(q)] = np.frombuffer(q.encode(), np.uint8) - 33 >= opt.q
+    qf &= b <= 3
+    bases, qf, lens = (torch.from_numpy(x) for x in (b, qf, ln))
+    _, lcov, hcov, isl = tann.kcov_island_plain(t, bases, lens, opt.min_cov)
+    caps = (tsrch.HEAP_CAP, tsrch.STACK_CAP)
+    want = tsrch.ec1_search_plain(t, opt, ds.mode, bases, qf, lens, lcov,
+                                  hcov, isl, *caps)
+    got = _kd_host(shim, t, opt, ds.mode, bases, qf, lens, lcov, hcov, isl,
+                   *caps)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    ovf = want[1][:, tsrch.OVERFLOW].bool()
+    assert bool(ovf.any()) or (opt.k == 33 and low_q)
+    searched = ~ovf & (want[1][:, tsrch.PROBES] > 0)
+    assert bool((lens[searched] > 512).any()) and _kd_host.deferred > 0
+
+
 @pytest.fixture(scope="module")
 def spectrum63(tmp_path_factory):
     """The spectrum fixture's reads at k = 63 (four u64 planes a state)."""

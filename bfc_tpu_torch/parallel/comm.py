@@ -97,10 +97,11 @@ def all_to_all_rows(cols: Sequence[Optional[torch.Tensor]],
     return out, list(recv_counts)
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """Sum of a small tensor over the ranks, on the host."""
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A small tensor reduced over the ranks by op (the sum unless told
+    otherwise, e.g. dist.ReduceOp.MIN), on the host."""
     h = t.detach().cpu().clone()
-    dist.all_reduce(h, group=side_group())
+    dist.all_reduce(h, op=op, group=side_group())
     return h
 
 

@@ -40,6 +40,12 @@ Counterpart of bfc_tpu/parallel/mesh.py:
              rank, which builds the replicated table (KL) or its sub-table
              (KN) from them (finalize_gathered).
 
+  entry      count_encoded_mesh counts an iterator of each rank's rows of
+             encoded batches; count_file_mesh is its FASTQ reader.  It is
+             count_mesh (the stream, the fold and the spill's meeting),
+             then finalize_count, so that a caller can read each rank's
+             aggregate between the two (tools/human_scale.py's check).
+
 Arrivals are global (bfc_tpu's mesh.py:110-114), so the counts and
 verdicts are those of the single-device pass, and so is the output.
 bfc_tpu's fixed bucket and merge capacities and their overflow retries
@@ -52,6 +58,7 @@ until the meeting after the last batch.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -231,22 +238,30 @@ def restore_mesh(fn: str, device, shard_table: bool) -> C.DeviceSpectrum:
         device, "restored", t0)
 
 
-def dump_mesh(ds: C.DeviceSpectrum, fn: str) -> None:
-    """-d in a mesh, a collective: rank 0 alone writes the dump.  A sharded
-    spectrum's entries are gathered to rank 0 for it, in rank order, which
-    is shard order."""
+def gathered_entries(ds: C.DeviceSpectrum):
+    """The kept entries (shard u32, keybody u64, payload u32) in key order
+    on rank 0, None on the other ranks.  A sharded spectrum's are
+    gathered to rank 0 in rank order, which is shard order, a
+    collective; a replicated one's are rank 0's own."""
     if not isinstance(ds.table, spec.ShardedTable):
-        if comm.rank() == 0:
-            ds.dump(fn)
-        return
+        return ds.compact_entries() if comm.rank() == 0 else None
     cols = [torch.from_numpy(np.ascontiguousarray(c).view(np.int64)
                              if c.dtype == np.uint64 else c.astype(np.int64))
             for c in ds.compact_entries()]
     got = comm.gather_rows(cols)
+    if got is None:
+        return None
+    shard, keybody, payload = (c.numpy() for c in got)
+    return (shard.astype(np.uint32), keybody.view(np.uint64),
+            payload.astype(np.uint32))
+
+
+def dump_mesh(ds: C.DeviceSpectrum, fn: str) -> None:
+    """-d in a mesh, a collective: rank 0 alone writes the dump of the
+    entries (gathered_entries)."""
+    got = gathered_entries(ds)
     if got is not None:
-        shard, keybody, payload = (c.numpy() for c in got)
-        C.write_dump(fn, ds.k, ds.l_pre, shard, keybody.view(np.uint64),
-                     payload)
+        C.write_dump(fn, ds.k, ds.l_pre, *got)
 
 
 # a HostAgg's columns as they cross the gloo group: (field, its dtype, the
@@ -352,57 +367,134 @@ def finalize_gathered(cols: list, tree: C.AggBuilder, opt: Opts, device,
     return ds
 
 
-def count_file_mesh(fn: str, opt: Opts, device, batch_reads: int = 16384,
-                    shard_table: bool = False,
-                    device_finalize: Optional[bool] = None
-                    ) -> C.DeviceSpectrum:
-    """Counting pass sharded over the ranks from a FASTQ file (bfc_tpu's
-    count_file_mesh, mesh.py:346-398, and count_encoded_mesh, :401-538):
-    this rank decodes and counts rows [r B/R, (r+1) B/R) of every batch
-    into its counting tree.  Where no rank's tree spilled, the spectrum
-    is finalized on the devices, its table sharded with shard_table
-    (finalize_mesh); else rank 0 finalizes the gathered aggregate
-    (finalize_gathered, device_finalize choosing the mode).  The
-    spectrum's count_report holds every rank's spills and rows spilled."""
+def share_rows(batch_reads: int):
+    """This rank's rows [lo, hi) of every padded batch of batch_reads
+    reads: [r B/R, (r+1) B/R).  Raises where R does not divide B."""
     R, r = comm.size(), comm.rank()
     if batch_reads % R:
         raise ValueError(f"batch_reads {batch_reads} is not a multiple of "
                          f"the {R} ranks")
     step = batch_reads // R
+    return r * step, (r + 1) * step
+
+
+@dataclasses.dataclass
+class MeshCount:
+    """This rank's share of a counting pass, before its finalize
+    (count_mesh): the counting tree; where no rank spilled, the folded
+    run on the device (run), else this rank's aggregate on the host
+    (host: its host tree's, or its folded run pulled), ret left out where
+    derivable; the reads of the stream, the mesh's aggregated rows and
+    how many ranks spilled.  finalize_count takes run or host out as it
+    consumes it."""
+
+    tree: C.AggBuilder
+    run: Optional[sdn.Run]
+    host: Optional[sph.HostAgg]
+    n_reads: int
+    n_agg: int
+    spilled: int
+
+
+def count_mesh(batch_iter, opt: Opts, device,
+               batch_reads: int = 16384) -> MeshCount:
+    """The counting of count_encoded_mesh, a collective: every batch
+    through sharded_chunk_run into this rank's tree, then the tree folded
+    and one all_reduce telling every rank whether any spilled; a rank
+    whose tree did not spill where another's did pulls its folded run
+    (AggBuilder.on_host)."""
+    lo, hi = share_rows(batch_reads)
+    R = comm.size()
     k, l_pre = opt.k, opt.effective_l_pre()
     dev = torch.device(device)
     tree = C.AggBuilder(opt, dev)
     n_reads = 0
-    for bases, qok, lens, n in C.padded_batches(fn, opt, batch_reads,
-                                                rows=(r * step, (r + 1) * step)):
+    for bases, qok, lens, n_records in batch_iter:
+        if bases.shape[0] != hi - lo:
+            raise ValueError(f"a batch share of {bases.shape[0]} rows; rank "
+                             f"{comm.rank()} of {R} owns {hi - lo}")
+        n_reads += int(n_records)
         L = bases.shape[1]
         run = sharded_chunk_run(
             torch.from_numpy(bases).to(dev), torch.from_numpy(qok).to(dev),
-            torch.from_numpy(lens).to(dev), tree.arrival_base + r * step * L,
+            torch.from_numpy(lens).to(dev), tree.arrival_base + lo * L,
             k, l_pre, tree.carry)
         tree.arrival_base += batch_reads * L
         tree.add_run(run)
-        n_reads += n
     log(f"processed {n_reads} sequences over {R} devices",
         func="count_file_mesh")
     acc, host = tree.drain()
     spilled = int(comm.all_reduce(torch.tensor([int(host is not None)])))
     if spilled:
-        cols = agg_columns(tree.on_host(acc, host), tree.carry)
-        del acc, host
-        n_agg = sum(comm.lengths(cols[0].shape[0]))
+        host = tree.on_host(acc, host)
+        acc = None
+        n_agg = sum(comm.lengths(len(host.shard)))
         log(f"{n_agg} distinct k-mers aggregated; {spilled} of {R} ranks "
             "spilled", func="count_file_mesh")
-        ds = finalize_gathered(cols, tree, opt, dev, shard_table,
-                               device_finalize)
     else:
         acc = sdn.empty_run(dev) if acc is None else acc
         n_agg = int(comm.all_reduce(torch.tensor([len(acc)])))
         log(f"{n_agg} distinct k-mers aggregated", func="count_file_mesh")
-        ds = finalize_mesh(acc, opt, shard_table)
+    return MeshCount(tree, acc, host, n_reads, n_agg, spilled)
+
+
+def finalize_count(mc: MeshCount, opt: Opts, device,
+                   shard_table: bool = False,
+                   device_finalize: Optional[bool] = None
+                   ) -> C.DeviceSpectrum:
+    """The finalize of count_mesh's share, a collective: where no rank
+    spilled, the distributed finalize on the devices, its table sharded
+    with shard_table (finalize_mesh); else rank 0's finalize of the
+    gathered aggregate (finalize_gathered, device_finalize choosing the
+    mode).  The spectrum's count_report holds every rank's spills and
+    rows spilled."""
+    tree = mc.tree
+    if mc.spilled:
+        cols = agg_columns(mc.host, tree.carry)
+        mc.host = None
+        ds = finalize_gathered(cols, tree, opt, torch.device(device),
+                               shard_table, device_finalize)
+    else:
+        run, mc.run = mc.run, None
+        ds = finalize_mesh(run, opt, shard_table)
         ds.count_report = {"finalize": "device"}
     ds.count_report.update(spills_by_rank=comm.lengths(tree.spills),
                            spilled_rows_by_rank=comm.lengths(
                                tree.spilled_rows))
-    ds.n_reads, ds.n_aggregated = n_reads, n_agg
+    ds.n_reads, ds.n_aggregated = mc.n_reads, mc.n_agg
     return ds
+
+
+def count_encoded_mesh(batch_iter, opt: Opts, device,
+                       batch_reads: int = 16384, shard_table: bool = False,
+                       device_finalize: Optional[bool] = None
+                       ) -> C.DeviceSpectrum:
+    """Counting pass sharded over the ranks from encoded batches (bfc_tpu's
+    count_encoded_mesh, mesh.py:401-538): count_mesh, then finalize_count.
+
+    batch_iter yields this rank's rows [r B/R, (r+1) B/R) of each padded
+    batch of B = batch_reads reads, in stream order, as (bases u8
+    [B/R, L], qual_ok bool, lens i32, n_records): n_records is the
+    whole batch's read count, the same on every rank (bfc_tpu's optional
+    fourth item is required here).  Every rank's iterator yields
+    the same number of batches, each with the same L (L may grow from
+    batch to batch).  Arrivals stay global: rank r's rows of a batch
+    start at arrival_base + r (B/R) L, and arrival_base advances by B L a
+    batch, so the spectrum is the single-device pass's."""
+    return finalize_count(count_mesh(batch_iter, opt, device, batch_reads),
+                          opt, device, shard_table, device_finalize)
+
+
+def count_file_mesh(fn: str, opt: Opts, device, batch_reads: int = 16384,
+                    shard_table: bool = False,
+                    device_finalize: Optional[bool] = None
+                    ) -> C.DeviceSpectrum:
+    """Counting pass sharded over the ranks from a FASTQ file (bfc_tpu's
+    count_file_mesh, mesh.py:346-398): this rank decodes rows [r B/R,
+    (r+1) B/R) of every batch (counter.padded_batches) and feeds them to
+    count_encoded_mesh."""
+    rows = share_rows(batch_reads)
+    return count_encoded_mesh(C.padded_batches(fn, opt, batch_reads,
+                                               rows=rows),
+                              opt, device, batch_reads, shard_table,
+                              device_finalize)

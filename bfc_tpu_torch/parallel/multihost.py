@@ -13,6 +13,9 @@ logs.
               python -m bfc_tpu_torch.parallel.multihost --launch N \\
                   [--backend gloo|nccl] -- <bfc args>
             (`python -m bfc_tpu_torch --mesh N` does the same).
+  module    launch(N, argv, module=...) starts N ranks of another module
+            the same way (tools/human_scale.py --mesh N does); each joins
+            the group itself through join, as worker_main does.
 
 The backend is NCCL on cards and gloo on the CPU unless --backend names
 one.  NCCL takes one card a rank: with more ranks on a host than cards it
@@ -97,10 +100,17 @@ def spool_stdin(argv: List[str], tmp: str,
     return opts + args
 
 
-def worker_main(argv: List[str], backend: Optional[str] = None,
-                report_path: Optional[str] = None) -> int:
-    """Run the CLI as one rank of the mesh, configured from torchrun's
-    variables (or the launcher's, which sets the same ones)."""
+def in_world() -> bool:
+    """Whether torchrun's variables (or the launcher's) make this process
+    a rank: RANK and WORLD_SIZE are set."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def join(cpu: bool, backend: Optional[str] = None) -> str:
+    """Join the process group as the rank that torchrun's variables (or
+    the launcher's, which sets the same ones) name; returns the rank's
+    device (device_for), made current where it is a card.  The backend
+    is gloo with cpu, else NCCL, unless named."""
     import torch
     import torch.distributed as dist
 
@@ -108,12 +118,6 @@ def worker_main(argv: List[str], backend: Optional[str] = None,
     world = int(os.environ.get("WORLD_SIZE", "1"))
     local = int(os.environ.get("LOCAL_RANK", str(rank)))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
-    if world > 1 and "-" in split_operands(argv)[1]:
-        raise RuntimeError(
-            f"stdin (`-`) in a world of {world} ranks: every rank would read "
-            "its own part of the stream; pass a file, or run through the "
-            "launcher (--mesh N or --launch N), which reads stdin once")
-    cpu = "--cpu" in argv
     backend = backend or ("gloo" if cpu else "nccl")
     dev = device_for(backend, local, local_world, cpu)
     if dev != "cpu":
@@ -121,6 +125,22 @@ def worker_main(argv: List[str], backend: Optional[str] = None,
     dist.init_process_group(
         backend, init_method=os.environ.get("BFC_TPU_INIT_METHOD", "env://"),
         rank=rank, world_size=world, timeout=TIMEOUT)
+    return dev
+
+
+def worker_main(argv: List[str], backend: Optional[str] = None,
+                report_path: Optional[str] = None) -> int:
+    """Run the CLI as one rank of the mesh (join)."""
+    import torch.distributed as dist
+
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and "-" in split_operands(argv)[1]:
+        raise RuntimeError(
+            f"stdin (`-`) in a world of {world} ranks: every rank would read "
+            "its own part of the stream; pass a file, or run through the "
+            "launcher (--mesh N or --launch N), which reads stdin once")
+    join("--cpu" in argv, backend)
 
     from .. import cli
     from ..utils import log as ulog
@@ -177,16 +197,22 @@ def wait_all(procs: List[subprocess.Popen], grace_s: float = GRACE_S) -> int:
 
 def launch(nproc: int, argv: List[str], backend: Optional[str] = None,
            stdout=None, report_path: Optional[str] = None,
-           stdin: Optional[BinaryIO] = None) -> int:
+           stdin: Optional[BinaryIO] = None,
+           module: Optional[str] = None) -> int:
     """Spawn nproc local ranks running the CLI with argv; rank 0's stdout
     passes through (or into `stdout`).  The ranks meet through a file in
     a fresh temporary directory, which also holds stdin (or `stdin`) read
-    once where an operand is `-` (spool_stdin).  Returns the largest exit
-    code."""
+    once where an operand is `-` (spool_stdin).  With `module`, each rank
+    runs `python -m module argv` instead, which joins the group itself
+    (join) and takes no stdin; backend and report_path are then the
+    module's to parse from argv.  Returns the largest exit code."""
     pkg_root = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if module is not None and (backend or report_path or stdin):
+        raise ValueError("a launched module takes its options in argv")
     with tempfile.TemporaryDirectory(prefix="bfc_mesh_") as tmp:
-        argv = spool_stdin(argv, tmp, stdin)
+        if module is None:
+            argv = spool_stdin(argv, tmp, stdin)
         procs = []
         for r in range(nproc):
             env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(nproc),
@@ -197,13 +223,15 @@ def launch(nproc: int, argv: List[str], backend: Optional[str] = None,
             # -P: the ranks import this package, not one that a working
             # directory holding another checkout would put first
             cmd = [sys.executable, "-P", "-m",
-                   "bfc_tpu_torch.parallel.multihost"]
-            if backend:
-                cmd += ["--backend", backend]
-            if report_path and r == 0:
-                cmd += ["--report", report_path]
+                   module or "bfc_tpu_torch.parallel.multihost"]
+            if module is None:
+                if backend:
+                    cmd += ["--backend", backend]
+                if report_path and r == 0:
+                    cmd += ["--report", report_path]
+                cmd.append("--")
             procs.append(subprocess.Popen(
-                cmd + ["--"] + list(argv), env=env, stdin=subprocess.DEVNULL,
+                cmd + list(argv), env=env, stdin=subprocess.DEVNULL,
                 stdout=(stdout if r == 0 else subprocess.DEVNULL)))
         return wait_all(procs)
 

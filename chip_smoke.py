@@ -4,9 +4,9 @@ E. coli scale, with the host finalize, with the device finalize, over a
 mesh of ranks with the table replicated and sharded, and from a dump
 (-d/-r), then the probe path (chip_probe.py), -R over the main path's
 output, a --profile run, the counting spill to the host, on one card
-and over the mesh, the human-scale rehearsal tool at a small size and
-reads of 300-3,000 bp, and holds every kernel against its plain PyTorch
-version.
+and over the mesh, the human-scale rehearsal tool at a small size,
+reads of 300-3,000 bp, and the rehearsal tool over two ranks, and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--genome BASES] [--seed N]
 
@@ -202,8 +202,8 @@ Phases (any failure raises; nothing is caught):
    seconds, and the peak resident set of the two ranks together (sampled
    from /proc every half second).
 20. The human-scale rehearsal (bfc_tpu_torch/tools/human_scale.py) in a
-   process of its own, BFC_TPU_MAX_MERGE_CAP unset: 2M reads of 100 bp
-   from a 10 Mb genome at k = 27, a ballast leaving 4 GiB of the card
+   process of its own, BFC_TPU_MAX_MERGE_CAP unset: 1M reads of 100 bp
+   from a 5 Mb genome at k = 27, a ballast leaving 4 GiB of the card
    free through the counting, both finalizes on the one aggregate.  The
    tree must spill on the byte rule alone, every check of the tool must
    pass (4,096 sampled keys tallied from KA's rows against the final
@@ -227,6 +227,23 @@ Phases (any failure raises; nothing is caught):
    is printed).  Printed: the walls, KC's and KD's launches, KD's us a
    read by band, the reads past its stack, and the widest batch the
    reader made.
+22. The human-scale rehearsal over a mesh: the tool with `--mesh 2
+   --backend gloo` (two ranks sharing cuda:0, each a process of its own
+   under the tool's launcher) at phase 20's reads, genome, k and seed.
+   (a) On the byte rule alone, 200,000 reads corrected: no rank may
+   spill; KA, KM, KB, KJ, KI, KK, KN, KC and KD must launch on every
+   rank and KE, KL and KF on none; the kept entries (entries_sha256)
+   must hash as phase 20's, all 1,000 sampled records must be checked
+   (the ranks' counts summed) and none may differ from refmodel.ec1 on
+   the sharded table, and at most 0.1% of the reads may fall back;
+   every check of the tool must pass (the tally combined
+   over the ranks and checked on each key's owner, each rank's key order
+   and the ranks' ascending ranges).  (b) Under BFC_TPU_MAX_MERGE_CAP =
+   4194304, counting only: every rank must spill, rank 0 must finalize
+   on the host, and the entries must hash as (a)'s.  Printed for each:
+   rows and spills by rank, the walls, rank 0's gather, finalize and
+   send seconds, device peaks by rank, the ranks' summed host peak RSS,
+   the correction rate and fallback, launches by rank.
 
 The tolerance is exact equality throughout: every output is an integer.
 Kernel times ("ms") of KA-KN are CUDA-event means of repeated wrapper
@@ -2160,35 +2177,52 @@ def check_spills(opt, bases, quals, tmp: Path):
 # --------------------------------------------------------------------------
 
 # bfc_tpu_torch.tools.human_scale at a size that spills on the byte rule
-# alone beside a ballast (a 10 Mb genome: ~4.5x10^7 rows against 4 GiB
-# free; 3M reads over 15 Mb took 107.9-132.8 s on one H100 80GB HBM3 at
-# 700 W, and 4M over 20 Mb beside 6 GiB 112-119 s)
-HUMAN_ARGS = ("--reads", "2e6", "--genome", "10e6", "--k", "27",
-              "--both-finalize", "--leave-free", "4")
+# alone beside a ballast (a 5 Mb genome: ~2.2x10^7 rows against 4 GiB
+# free; 2M reads over 10 Mb took 63.2-74.7 s on one H100 80GB HBM3 at
+# 700 W, and 3M over 15 Mb 107.9-132.8 s)
+HUMAN_COUNT = ("--reads", "1e6", "--genome", "5e6", "--k", "27")
+HUMAN_ARGS = HUMAN_COUNT + ("--both-finalize", "--leave-free", "4")
 # KA-KE counting and spilling, the device finalize of the uploaded
 # aggregate (a verdict kernel, KK, KL), and the correction
 HUMAN_KERNELS = ("kmer_stream", "run_combine", "pack_pull", "finalize_counts",
                  "cuckoo_build", "kcov_island", "ec1_search")
+TOOL_TIMEOUT = 600  # seconds for one run of the tool (phases 20 and 22)
 
 
-def check_human_scale():
-    """Phase 20: the tool in a process of its own, BFC_TPU_MAX_MERGE_CAP
-    unset.  Its checks must pass, the tree must have spilled, and its
-    launches must include HUMAN_KERNELS and a verdict kernel.  Returns
-    its report."""
+def run_tool(args, timeout: int):
+    """The human-scale tool with args in a process group of its own, the
+    merge cap and finalize variables unset; on a timeout the whole group
+    (the launcher and its ranks) is killed and the run fails.  Returns
+    (report, wall); its progress lines are printed indented."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("BFC_TPU_MAX_MERGE_CAP", "BFC_TPU_DEVICE_FINALIZE")}
     t0 = time.time()
-    r = subprocess.run([sys.executable, "-m", "bfc_tpu_torch.tools.human_scale",
-                        *HUMAN_ARGS], env=env, stdout=subprocess.PIPE,
-                       stderr=subprocess.PIPE, text=True)
+    p = subprocess.Popen([sys.executable, "-m",
+                          "bfc_tpu_torch.tools.human_scale", *args], env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"human_scale {' '.join(args)}: still running after "
+             f"{timeout} s")
     wall = time.time() - t0
-    for ln in r.stdout.splitlines()[:-1]:
+    for ln in out.splitlines()[:-1]:
         print(f"  {ln}", flush=True)
-    if r.returncode != 0:
-        sys.stdout.write(r.stderr[-4000:])
-        fail(f"human_scale exited with {r.returncode}")
-    rep = json.loads(r.stdout.splitlines()[-1])
+    if p.returncode != 0:
+        sys.stdout.write(err[-4000:])
+        fail(f"human_scale {' '.join(args)} exited with {p.returncode}")
+    return json.loads(out.splitlines()[-1]), wall
+
+
+def check_human_scale():
+    """Phase 20: the tool in a process of its own (run_tool),
+    BFC_TPU_MAX_MERGE_CAP unset.  Its checks must pass, the tree must have spilled, and its
+    launches must include HUMAN_KERNELS and a verdict kernel.  Returns
+    its report."""
+    rep, wall = run_tool(HUMAN_ARGS, TOOL_TIMEOUT)
     fin = rep["finalize_modes"]
     print(f"human scale ({' '.join(HUMAN_ARGS)}): {rep['reads']} reads "
           f"({rep['gbp']:.2f} Gbp, k {rep['k']}); {rep['rows_aggregated']} "
@@ -2207,7 +2241,8 @@ def check_human_scale():
           f"RSS {rep['host_peak_rss_bytes'] / 2**30:.2f} GiB; correction "
           f"{rep['correct_reads_per_s']:.0f} reads/s, fallback share "
           f"{rep['fallback_share']}; checks {rep['checks']}; launches "
-          f"{rep['launches']}; {wall:.1f} s", flush=True)
+          f"{rep['launches']}; entries sha256 {rep['entries_sha256']}; "
+          f"{wall:.1f} s", flush=True)
     if not rep["ok"]:
         fail("human_scale: a check failed")
     if rep["spills"] < 1 or rep["merge_cap"] is not None:
@@ -2217,6 +2252,88 @@ def check_human_scale():
             or rep["launches"]["first_occurrence"]):
         fail("human_scale: no verdict kernel launched")
     return rep
+
+
+# --------------------------------------------------------------------------
+# Phase 22: the human-scale rehearsal over a mesh
+# --------------------------------------------------------------------------
+
+# (a) on the byte rule alone, unspilled: the distributed finalize (KJ, KM,
+# KI, KK), the sharded table (KN) and the correction over it
+MESH_HUMAN_KERNELS = ("kmer_stream", "route_rows", "run_combine",
+                      "derive_ret", "first_occurrence", "finalize_counts",
+                      "cuckoo_build_local", "kcov_island", "ec1_search")
+MESH_HUMAN_SILENT = ("pack_pull", "cuckoo_build", "bloom_adjudicate")
+def check_human_scale_mesh(single_sha: str):
+    """Phase 22: the tool over two gloo ranks sharing cuda:0 at phase 20's
+    reads, genome, k and seed.  (a) on the byte rule alone, correcting
+    200,000 reads: nothing may spill, MESH_HUMAN_KERNELS must launch on
+    every rank and MESH_HUMAN_SILENT on none, the kept entries must hash
+    as phase 20's (single_sha), all SAMPLE_READS sampled records must be
+    checked, none differing, and at most 0.1% of the reads fall back.  (b) under BFC_TPU_MAX_MERGE_CAP =
+    SPILL_CAP, counting only: every rank must spill, rank 0 must finalize
+    on the host, and the entries must hash as (a)'s.  Every check of the
+    tool must pass in both.  Returns the launches of each, summed over the
+    ranks, by path name."""
+    mesh = ("--mesh", "2", "--backend", "gloo")
+    a, wall_a = run_tool(HUMAN_COUNT + mesh + ("--correct-reads", "2e5"),
+                         TOOL_TIMEOUT)
+    print(f"human scale mesh (a) ({' '.join(HUMAN_COUNT + mesh)}, byte rule): "
+          f"{a['reads']} reads; {a['rows_aggregated']} rows aggregated "
+          f"({a['rows_by_rank']} by rank), spills {a['spills_by_rank']}; "
+          f"counting {a['count_s']:.2f} s ({a['count_reads_per_s']:.0f} "
+          f"reads/s), finalize {a['finalize_s']:.2f} s ({a['finalize']}, "
+          f"{a['verdict']}); {a['entries']} entries, {a['entries_by_rank']} "
+          f"by rank, table {a['table']}, {a['table_bytes_per_rank']} bytes a "
+          f"rank; device peaks by rank: counting "
+          f"{a['count_peak_bytes_by_rank']}, finalize "
+          f"{a['finalize_peak_bytes_by_rank']}, correction "
+          f"{a['correct_peak_bytes_by_rank']}; host peak RSS summed "
+          f"{a['host_peak_rss_bytes_summed'] / 2**30:.2f} GiB; correction "
+          f"{a['correct_reads_per_s']:.0f} reads/s, fallback share "
+          f"{a['fallback_share']}; checks {a['checks']}; launches by rank "
+          f"{a['launches_by_rank']}, check {a['check_launches']}; "
+          f"{wall_a:.1f} s", flush=True)
+    if not a["ok"]:
+        fail("human_scale --mesh (a): a check failed")
+    if max(a["spills_by_rank"]) or a["merge_cap"] is not None:
+        fail("human_scale --mesh (a): a rank spilled")
+    for i, ls in enumerate(a["launches_by_rank"]):
+        need_launched(ls, MESH_HUMAN_KERNELS, f"rank {i} of phase 22 (a)")
+        need_silent(ls, MESH_HUMAN_SILENT, f"rank {i} of phase 22 (a)")
+    if a["table"] != "sharded":
+        fail("human_scale --mesh (a): the table is not sharded")
+    if a["entries_sha256"] != single_sha:
+        fail("human_scale --mesh (a): the kept entries differ from phase "
+             "20's")
+    if (a["checks"]["records"] != {"sampled": SAMPLE_READS, "differ": 0}
+            or a["fallback_share"] > 0.001):
+        fail("human_scale --mesh (a): records differ or went unchecked, or "
+             "the fallback is above 0.1%")
+    b, wall_b = run_tool(HUMAN_COUNT + mesh + (
+        "--merge-cap", str(SPILL_CAP), "--count-only"), TOOL_TIMEOUT)
+    print(f"human scale mesh (b) (cap {SPILL_CAP}, counting only): spills "
+          f"{b['spills_by_rank']} of {b['spilled_rows_by_rank']} rows, host "
+          f"merges of {b['host_merge_rows_by_rank']} rows; counting "
+          f"{b['count_s']:.2f} s; rank 0: gather {b['rank0_gather_s']:.2f} "
+          f"s, {b['finalize']} finalize {b['rank0_finalize_s']:.2f} s "
+          f"({b['verdict']}), send {b['rank0_send_s']:.2f} s; finalize "
+          f"{b['finalize_s']:.2f} s in all; device counting peaks "
+          f"{b['count_peak_bytes_by_rank']}; host peak RSS summed "
+          f"{b['host_peak_rss_bytes_summed'] / 2**30:.2f} GiB; checks "
+          f"{b['checks']}; launches by rank {b['launches_by_rank']}; "
+          f"{wall_b:.1f} s", flush=True)
+    if not b["ok"]:
+        fail("human_scale --mesh (b): a check failed")
+    if min(b["spills_by_rank"]) < 1 or b["finalize"] != "host":
+        fail("human_scale --mesh (b): a rank did not spill, or rank 0 did "
+             "not finalize on the host")
+    if b["entries_sha256"] != a["entries_sha256"]:
+        fail("human_scale --mesh (b): the kept entries differ from (a)'s")
+    print("human scale mesh: (a) and (b) keep phase 20's entries; every "
+          "check passed", flush=True)
+    return {"human_scale_mesh_gloo_2": a["launches"],
+            "human_scale_mesh_spill_gloo_2": b["launches"]}
 
 
 # --------------------------------------------------------------------------
@@ -2988,9 +3105,11 @@ def main() -> int:
         # mesh's spill (phase 19)
         spill_launches = check_spills(opt, bases, quals, tmp)
 
-        # ---- the human-scale tool (phase 20), reads over 504 bp (21)
+        # ---- the human-scale tool (phase 20), reads over 504 bp (21),
+        # the tool over a mesh (22)
         human = check_human_scale()
         long_launches = check_long_reads(tmp, args.seed, dev)
+        mesh_human = check_human_scale_mesh(human["entries_sha256"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3000,7 +3119,8 @@ def main() -> int:
              "trim_device_finalize_from_2^33": ftlaunches,
              "main_count_device_finalize_from_2^33": fclaunches,
              **mesh_launches, **spill_launches,
-             "human_scale": human["launches"], **long_launches}
+             "human_scale": human["launches"], **long_launches,
+             **mesh_human}
     rows = []
     for name, (tag, src, replaces) in SOURCES.items():
         r = res[name]

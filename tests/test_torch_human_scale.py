@@ -202,9 +202,14 @@ def test_main_on_the_cpu(capsys, monkeypatch):
 
 def test_main_checks_an_unspilled_run(capsys, monkeypatch):
     """Nothing spills (no cap, and the CPU has no byte limit): the device
-    finalize takes finish's Run, and the check takes it pulled."""
+    finalize takes finish's Run, and the check searches it where it lies,
+    pulling nothing of it to the host."""
     monkeypatch.delenv("BFC_TPU_MAX_MERGE_CAP", raising=False)
     _count_ka(monkeypatch)
+    pulls = []
+    pull = TC.AggBuilder.pull
+    monkeypatch.setattr(TC.AggBuilder, "pull",
+                        lambda self, *a: pulls.append(1) or pull(self, *a))
     rc = HS.main(["--cpu", "--reads", "2048", "--genome", "100e3",
                   "--batch", "1024", "--device-finalize", "--count-only"])
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -213,6 +218,7 @@ def test_main_checks_an_unspilled_run(capsys, monkeypatch):
     assert rep["checks"]["tally"]["tallied"] > 2000
     assert rep["launches"]["kmer_stream"] == 2
     assert rep["check_launches"] == {"kmer_stream": 2 + 2}
+    assert not pulls
 
 
 def test_main_refuses_a_stray_cap_and_a_missing_card(monkeypatch):
